@@ -7,6 +7,27 @@
 
 namespace slod {
 
+// Dynamic shared memory one CTA may opt in to on the current device
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin: 227 KB on an H100), queried
+// once per device; 0 if the query fails.
+inline size_t max_smem_optin() {
+  static int cache[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] == 0) {
+    int v = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess)
+      return 0;
+    cache[dev] = v;
+  }
+  return (size_t)cache[dev];
+}
+
+// Head-room kept below max_smem_optin() for a kernel's static __shared__
+// arrays when its dynamic buffer is sized against the limit.
+constexpr size_t STATIC_SMEM_MARGIN = 1024;
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

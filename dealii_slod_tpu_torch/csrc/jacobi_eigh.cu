@@ -16,6 +16,13 @@
 // boundary.  The caterpillar advance only permutes a slot -> row table;
 // rows never move.  eps = finfo.tiny * 1e3 and the null_rel gate of the
 // convergence monitor are those of the TPU kernel.
+// Where the rows live, chosen by size in rows_ws_elems: the n x n rows sit
+// in shared memory when they fit what one CTA can opt in to (every
+// diffusion shape; elasticity in float32, k = 32), else in a per-CTA slice
+// of a global workspace the caller allocates (float64 elasticity at
+// n = 374: 1.1 MB per matrix, beyond the 227 KB a CTA can have); the row
+// norms and the slot tables stay in shared memory either way.  The global
+// path serves float64 correctness runs; its speed is not a goal.
 // Stopping rule: the TPU kernel shares `off` over a block of 16 matrices;
 // here each matrix stops on its own (sweeps stop once every significant
 // pair's squared row-cosine in the previous sweep was below tol), i.e.
@@ -49,19 +56,40 @@ struct Rows {
   int* slotB;
 };
 
+// gX: null for rows in shared memory, else the global workspace
+// (B, n, n) of which this CTA uses its own slice.
 template <typename T>
-__device__ Rows<T> carve(unsigned char* smem, int n) {
+__device__ Rows<T> carve(unsigned char* smem, int n, T* gX) {
   Rows<T> r;
-  r.X = reinterpret_cast<T*>(smem);
-  r.nrm = r.X + (size_t)n * n;
+  T* s = reinterpret_cast<T*>(smem);
+  if (gX) {
+    r.X = gX + (size_t)blockIdx.x * n * n;
+    r.nrm = s;
+  } else {
+    r.X = s;
+    r.nrm = s + (size_t)n * n;
+  }
   r.slotT = reinterpret_cast<int*>(r.nrm + n);
   r.slotB = r.slotT + n / 2;
   return r;
 }
 
 template <typename T>
-size_t rows_smem(int n) {
-  return ((size_t)n * n + n) * sizeof(T) + (size_t)n * sizeof(int);
+size_t rows_smem(int n, bool global_rows) {
+  return ((global_rows ? 0 : (size_t)n * n) + n) * sizeof(T) +
+         (size_t)n * sizeof(int);
+}
+
+// Elements of global workspace per matrix: 0 when the rows fit in shared
+// memory, n*n otherwise; -1 if the device cannot be queried or even the
+// norms and slot tables do not fit.
+template <typename T>
+long long rows_ws_elems(int n) {
+  const size_t lim = slod::max_smem_optin();
+  if (lim <= slod::STATIC_SMEM_MARGIN) return -1;
+  if (rows_smem<T>(n, false) <= lim - slod::STATIC_SMEM_MARGIN) return 0;
+  if (rows_smem<T>(n, true) > lim - slod::STATIC_SMEM_MARGIN) return -1;
+  return (long long)n * n;
 }
 
 // The sweeps on the rows in R.X (filled by the caller, and the caller's
@@ -183,10 +211,10 @@ __device__ void jacobi_sweeps(Rows<T> R, T* __restrict__ XTo,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     jacobi_rows_kernel(const T* __restrict__ G, T* __restrict__ XTo,
-                       T* __restrict__ XBo, int n, int sweeps, T tol,
+                       T* __restrict__ XBo, T* gX, int n, int sweeps, T tol,
                        T null_rel, T eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Rows<T> R = carve<T>(smem_raw, n);
+  const Rows<T> R = carve<T>(smem_raw, n, gX);
   const size_t base = (size_t)blockIdx.x * n * n;
   for (int e = threadIdx.x; e < n * n; e += THREADS) R.X[e] = G[base + e];
   __syncthreads();
@@ -197,10 +225,10 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     weig_kernel(const T* __restrict__ ZT, const T* __restrict__ YT,
-                T* __restrict__ XTo, T* __restrict__ XBo, int k, int nf,
-                int sweeps, T tol, T null_rel, T eps) {
+                T* __restrict__ XTo, T* __restrict__ XBo, T* gX, int k,
+                int nf, int sweeps, T tol, T null_rel, T eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Rows<T> R = carve<T>(smem_raw, k);
+  const Rows<T> R = carve<T>(smem_raw, k, gX);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t base = (size_t)blockIdx.x * k * nf;
   for (int e = warp; e < k * k; e += THREADS / 32) {
@@ -216,32 +244,39 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T>
-int launch_jacobi(void* G, void* XT, void* XB, int B, int n, int sweeps,
-                  double tol, double null_rel, double eps, void* stream) {
+int launch_jacobi(void* G, void* XT, void* XB, void* ws, int B, int n,
+                  int sweeps, double tol, double null_rel, double eps,
+                  void* stream) {
   if (B <= 0 || n < 2 || n % 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = rows_smem<T>(n);
+  const long long ge = rows_ws_elems<T>(n);
+  if (ge < 0 || (ge > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  const size_t smem = rows_smem<T>(n, ge > 0);
   cudaError_t err = cudaFuncSetAttribute(
       jacobi_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   jacobi_rows_kernel<T><<<B, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)G, (T*)XT, (T*)XB, n, sweeps, (T)tol, (T)null_rel, (T)eps);
+      (const T*)G, (T*)XT, (T*)XB, ge > 0 ? (T*)ws : nullptr, n, sweeps,
+      (T)tol, (T)null_rel, (T)eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_weig(void* ZT, void* YT, void* XT, void* XB, int B, int k, int nf,
-                int sweeps, double tol, double null_rel, double eps,
-                void* stream) {
+int launch_weig(void* ZT, void* YT, void* XT, void* XB, void* ws, int B,
+                int k, int nf, int sweeps, double tol, double null_rel,
+                double eps, void* stream) {
   if (B <= 0 || k < 2 || k % 2 || nf <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = rows_smem<T>(k);
+  const long long ge = rows_ws_elems<T>(k);
+  if (ge < 0 || (ge > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  const size_t smem = rows_smem<T>(k, ge > 0);
   cudaError_t err = cudaFuncSetAttribute(
       weig_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   weig_kernel<T><<<B, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)ZT, (const T*)YT, (T*)XT, (T*)XB, k, nf, sweeps, (T)tol,
-      (T)null_rel, (T)eps);
+      (const T*)ZT, (const T*)YT, (T*)XT, (T*)XB,
+      ge > 0 ? (T*)ws : nullptr, k, nf, sweeps, (T)tol, (T)null_rel,
+      (T)eps);
   return (int)cudaGetLastError();
 }
 
@@ -249,29 +284,33 @@ int launch_weig(void* ZT, void* YT, void* XT, void* XB, int B, int k, int nf,
 
 extern "C" {
 
-int slod_jacobi_rows_f32(void* G, void* XT, void* XB, int B, int n,
+int slod_jacobi_rows_f32(void* G, void* XT, void* XB, void* ws, int B, int n,
                          int sweeps, double tol, double null_rel, double eps,
                          void* stream) {
-  return launch_jacobi<float>(G, XT, XB, B, n, sweeps, tol, null_rel, eps,
-                              stream);
+  return launch_jacobi<float>(G, XT, XB, ws, B, n, sweeps, tol, null_rel,
+                              eps, stream);
 }
-int slod_jacobi_rows_f64(void* G, void* XT, void* XB, int B, int n,
+int slod_jacobi_rows_f64(void* G, void* XT, void* XB, void* ws, int B, int n,
                          int sweeps, double tol, double null_rel, double eps,
                          void* stream) {
-  return launch_jacobi<double>(G, XT, XB, B, n, sweeps, tol, null_rel, eps,
-                               stream);
+  return launch_jacobi<double>(G, XT, XB, ws, B, n, sweeps, tol, null_rel,
+                               eps, stream);
 }
-int slod_weig_f32(void* ZT, void* YT, void* XT, void* XB, int B, int k,
-                  int nf, int sweeps, double tol, double null_rel, double eps,
-                  void* stream) {
-  return launch_weig<float>(ZT, YT, XT, XB, B, k, nf, sweeps, tol, null_rel,
-                            eps, stream);
+int slod_weig_f32(void* ZT, void* YT, void* XT, void* XB, void* ws, int B,
+                  int k, int nf, int sweeps, double tol, double null_rel,
+                  double eps, void* stream) {
+  return launch_weig<float>(ZT, YT, XT, XB, ws, B, k, nf, sweeps, tol,
+                            null_rel, eps, stream);
 }
-int slod_weig_f64(void* ZT, void* YT, void* XT, void* XB, int B, int k,
-                  int nf, int sweeps, double tol, double null_rel, double eps,
-                  void* stream) {
-  return launch_weig<double>(ZT, YT, XT, XB, B, k, nf, sweeps, tol, null_rel,
-                             eps, stream);
+int slod_weig_f64(void* ZT, void* YT, void* XT, void* XB, void* ws, int B,
+                  int k, int nf, int sweeps, double tol, double null_rel,
+                  double eps, void* stream) {
+  return launch_weig<double>(ZT, YT, XT, XB, ws, B, k, nf, sweeps, tol,
+                             null_rel, eps, stream);
 }
+// workspace elements per matrix of K5 / K8 at row length n (0: the rows
+// fit in shared memory; -1: no launch can take n)
+long long slod_jacobi_rows_ws_f32(int n) { return rows_ws_elems<float>(n); }
+long long slod_jacobi_rows_ws_f64(int n) { return rows_ws_elems<double>(n); }
 
 }  // extern "C"

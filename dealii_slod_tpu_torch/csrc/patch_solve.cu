@@ -22,6 +22,21 @@
 // holds D_j^-1, w_j and W.  Simple and right first: no tensor cores, no
 // TMA, no multi-CTA split of a patch (later work).
 //
+// K6 replaces dealii_slod_tpu/ops/patch_solve.py: spd_multirhs_solve_dma
+// (_fused_kernel_ldl_dma_nt, col_blocked=True), the solve-only leaf of the
+// recursive 2x2 Schur split (fused_spd_multirhs_split) that the 3D
+// elasticity patch solve (n = 2187) runs: X = A^-1 B, no T.  It is K1's
+// kernel instantiated without the triple product (the WITH_T template
+// flag drops the T accumulation and the T output; K1's instance is
+// unchanged).  What bounds it on the card: with the wide right-hand sides
+// of the split (k up to 1794 -> 1856 at n = 768) the forward and backward
+// right-hand-side updates, ~2 n^2 k FMAs per patch, outweigh the n^3/3 of
+// the factor; the trailing matrix and the (n, k) block stream through L2 /
+// HBM once per panel.  The design is K1's: one CTA per patch, 64x64 tiles
+// staged through shared memory, the per-patch workspace NB (NB + k + n).
+// JAX's leaf runs 128-wide panels (panel_nb) on the TPU; the tile here
+// stays 64 wide, as K1's; panel_nb only drives the split rule.
+//
 // K2 replaces dealii_slod_tpu/ops/patch_solve.py: gj_inverse_pallas
 // (_gj_inverse_kernel -> _gj_invert_spd), the m-step sweep on (B, m, m)
 // SPD matrices padded to m = 128 with the identity.  What bounds it: the
@@ -99,8 +114,9 @@ __device__ void tile_gemm(T* C, int ldc, const T* A, int lda, const T* B,
 
 // One CTA per patch.  A (P, n, n) scratch, factored in place (panels end
 // as L); X (P, n, k) holds B on entry and X = A^-1 B on exit; Tout
-// (P, k, k); work (P, NB*NB + NB*k + n*NB).  n % NB == 0, k % NB == 0.
-template <typename T>
+// (P, k, k), written only WITH_T (K1; K6 passes none); work
+// (P, NB*NB + NB*k + n*NB).  n % NB == 0, k % NB == 0.
+template <typename T, bool WITH_T>
 __global__ void __launch_bounds__(K1_THREADS)
     fused_ldl_kernel(T* A, T* X, T* Tout, T* work, int n, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -109,7 +125,7 @@ __global__ void __launch_bounds__(K1_THREADS)
   const size_t p = blockIdx.x;
   T* Ap = A + p * n * n;
   T* Xp = X + p * n * k;
-  T* Tp = Tout + p * k * k;
+  T* Tp = WITH_T ? Tout + p * k * k : nullptr;
   T* Dinv = work + p * (size_t)(NB * NB + NB * k + n * NB);  // NB x NB
   T* w = Dinv + NB * NB;                                       // NB x k
   T* W = w + NB * k;                                           // n x NB
@@ -132,11 +148,13 @@ __global__ void __launch_bounds__(K1_THREADS)
                                  false, sm);
     __syncthreads();
     // T (+)= z_j^T w_j
-    for (int rt = 0; rt < ktl; ++rt)
-      for (int ct = 0; ct < ktl; ++ct)
-        tile_gemm<T, true, false>(Tp + (size_t)rt * NB * k + ct * NB, k,
-                                  Xp + (size_t)j0 * k + rt * NB, k,
-                                  w + ct * NB, k, NB, T(1), j > 0, sm);
+    if constexpr (WITH_T) {
+      for (int rt = 0; rt < ktl; ++rt)
+        for (int ct = 0; ct < ktl; ++ct)
+          tile_gemm<T, true, false>(Tp + (size_t)rt * NB * k + ct * NB, k,
+                                    Xp + (size_t)j0 * k + rt * NB, k,
+                                    w + ct * NB, k, NB, T(1), j > 0, sm);
+    }
     if (j + 1 < nblk) {
       // W_r = A_{r,j} D_j^-1 for the row tiles below the panel
       for (int r = j + 1; r < nblk; ++r)
@@ -182,14 +200,16 @@ __global__ void __launch_bounds__(K1_THREADS)
   }
 }
 
-template <typename T>
+template <typename T, bool WITH_T>
 int launch_fused(void* A, void* X, void* Tm, void* work, int P, int n, int k,
                  void* stream) {
-  if (n % NB || k % NB || P <= 0) return (int)cudaErrorInvalidValue;
+  if (n % NB || k % NB || P <= 0 || n <= 0 || k <= 0)
+    return (int)cudaErrorInvalidValue;
   const size_t gj = (size_t)NB * NB + 2 * NB, tiles = 2 * KT * LDS;
   const size_t smem = (gj > tiles ? gj : tiles) * sizeof(T);
-  fused_ldl_kernel<T><<<P, K1_THREADS, smem, (cudaStream_t)stream>>>(
-      (T*)A, (T*)X, (T*)Tm, (T*)work, n, k);
+  fused_ldl_kernel<T, WITH_T>
+      <<<P, K1_THREADS, smem, (cudaStream_t)stream>>>((T*)A, (T*)X, (T*)Tm,
+                                                      (T*)work, n, k);
   return (int)cudaGetLastError();
 }
 
@@ -224,11 +244,19 @@ extern "C" {
 
 int slod_fused_spd_multirhs_f32(void* A, void* X, void* T, void* work, int P,
                                 int n, int k, void* stream) {
-  return launch_fused<float>(A, X, T, work, P, n, k, stream);
+  return launch_fused<float, true>(A, X, T, work, P, n, k, stream);
 }
 int slod_fused_spd_multirhs_f64(void* A, void* X, void* T, void* work, int P,
                                 int n, int k, void* stream) {
-  return launch_fused<double>(A, X, T, work, P, n, k, stream);
+  return launch_fused<double, true>(A, X, T, work, P, n, k, stream);
+}
+int slod_spd_multirhs_solve_f32(void* A, void* X, void* work, int P, int n,
+                                int k, void* stream) {
+  return launch_fused<float, false>(A, X, nullptr, work, P, n, k, stream);
+}
+int slod_spd_multirhs_solve_f64(void* A, void* X, void* work, int P, int n,
+                                int k, void* stream) {
+  return launch_fused<double, false>(A, X, nullptr, work, P, n, k, stream);
 }
 int slod_gj_inverse_f32(void* M, int B, int m, void* stream) {
   return launch_gj<float>(M, B, m, stream);

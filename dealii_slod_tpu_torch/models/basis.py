@@ -1,7 +1,10 @@
 """Batched SLOD basis construction on the padded canvas — the hot
 per-patch loop (counterpart of ``dealii_slod_tpu/models/basis.py``: the
 uniform kernel's chunk form, ``_uniform_chunk_fn`` with the fused patch
-solver and the split spectral stage, smallk or Jacobi).
+solver or its Schur split and the split spectral stage, smallk or Jacobi),
+for scalar diffusion (C = 1) and linear elasticity (C = dim).  Dofs are
+node-major with the components interleaved (node * C + c); the trace works
+on (B, C, nN, k).
 
 Every patch is padded to the full (2l+1)-cell canvas window and its real
 window is described by data (``nlo``/``nhi`` node bounds, domain-side
@@ -12,12 +15,14 @@ product.  Each function below works on a batch (chunk) of B patches.
 Per chunk (reference source/LOD.cc:296-768):
 
 1. ``prep``: bands, the SPD interior block A, the masked projection PT;
-2. X = A^-1 PT and T = PT^T X (K1), T^-1 (K2);
-3. the patch-boundary trace S = A X (K3) and the Gram F = BD^T BD;
-4. the stabilization coefficients dvec: the smallk stage (K2, K4, K5 or
-   K8 on the smallest directions) or the Jacobi stage (K5 on the Gram's
-   Cholesky factor, then the truncated pseudo-inverse solve);
-5. the candidate and A phi (K3).
+2. X = A^-1 PT and T = PT^T X (K1, or the Schur split with K6 leaves),
+   T^-1 (K2, blocked beyond 128);
+3. the patch-boundary trace S = A X (K3 / K7) and the Gram F = BD^T BD,
+   C Grams per patch from one F;
+4. the stabilization coefficients dvec on the B C Grams: the smallk stage
+   (K2, K4, K5 or K8 on the smallest directions) or the Jacobi stage (K5
+   on the Gram's Cholesky factor, then the truncated pseudo-inverse solve);
+5. the C candidates and A phi (K3 / K7).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from dealii_slod_tpu_torch.ops.eig import (_truncation_scan,
                                            jacobi_eigh_factor,
                                            smallk_truncated_dvec)
 from dealii_slod_tpu_torch.ops.patch_solve import (fused_spd_multirhs,
+                                                   fused_spd_multirhs_split,
                                                    spd_inverse_schur)
 
 
@@ -57,9 +63,13 @@ class UniformTables:
 
     dim: int
     s: int
+    C: int                      # solution components
     n_nodes: int
-    cD: int
-    nI: int
+    cD: int                     # coarse dofs (cells * C)
+    n_int: int                  # interior canvas nodes
+    nI: int                     # interior dofs (n_int * C)
+    solver_mode: str            # "fused" (K1) or "fused_split" (K6 leaves)
+    panel_nb: int               # split rule block size
     Hdim: float
     thr: float
     sweeps: int
@@ -73,7 +83,8 @@ class UniformTables:
     center_cell: int
     grid_rev: tuple
     sub_dims: np.ndarray
-    band_tensors: dict          # name -> (2^dim, nq, 3^dim, 1, 1)
+    band_tensors: dict          # name -> (2^dim, nq, 3^dim, C, C)
+    coef_names: list            # sorted coefficient names (band sum order)
     center_o: int
     placement: tuple            # (P, shift, nN) of the interior grid
     offs_flat: tuple
@@ -92,8 +103,9 @@ class UniformTables:
 
 
 def uniform_tables(cfg, grid, et, sc, center_cell, device, dtype,
-                   eig_block, spec_mode) -> UniformTables:
-    dim, s = cfg.dim, cfg.n_subdivisions
+                   eig_block, spec_mode, solver_mode,
+                   coef_names) -> UniformTables:
+    dim, s, C = cfg.dim, cfg.n_subdivisions, et.n_components
     offs = cartesian_coords(np.full(dim, 3)) - 1
     node_dims = sc.node_dims_local
     strides = np.concatenate([[1], np.cumprod(node_dims[:-1])]).astype(int)
@@ -108,8 +120,10 @@ def uniform_tables(cfg, grid, et, sc, center_cell, device, dtype,
     P, shift, nN = band_placement_matrix(node_dims - 2)
 
     return UniformTables(
-        dim=dim, s=s, n_nodes=sc.n_nodes_local,
-        cD=sc.n_coarse_dofs_local, nI=len(sc.interior_nodes),
+        dim=dim, s=s, C=C, n_nodes=sc.n_nodes_local,
+        cD=sc.n_coarse_dofs_local, n_int=len(sc.interior_nodes),
+        nI=len(sc.interior_nodes) * C, solver_mode=solver_mode,
+        panel_nb=cfg.panel_nb,
         Hdim=grid.H ** dim, thr=cfg.svd_threshold, sweeps=cfg.eig_sweeps,
         eig_tol=cfg.eig_tol, eig_block=eig_block, spec_mode=spec_mode,
         k_eff=smallk_k_eff(sc.n_coarse_dofs_local, dtype, cfg.smallk_dirs),
@@ -117,6 +131,7 @@ def uniform_tables(cfg, grid, et, sc, center_cell, device, dtype,
         smallk_weig=cfg.smallk_weig, center_cell=center_cell,
         grid_rev=_rev(node_dims), sub_dims=sc.sub_dims_local.copy(),
         band_tensors={k: tf(v) for k, v in make_band_tensors(et).items()},
+        coef_names=list(coef_names),
         center_o=int(np.nonzero((offs == 0).all(axis=1))[0][0]),
         placement=(tf(P), shift, nN),
         offs_flat=tuple(int(o) for o in offs @ strides),
@@ -138,30 +153,33 @@ def _inside(coords, lo, hi, strict):
     return ok.all(-1)
 
 
-def prep(tab: UniformTables, coef, nlo, nhi):
-    """Assembled operators and masks for a chunk of patch windows:
-    ``band`` (B, nN, 3^dim) over all canvas nodes (unmasked, the operator
-    the trace / premultiply products apply), ``A_solve`` (B, nI, nI) the
+def prep(tab: UniformTables, coefs, nlo, nhi):
+    """Assembled operators and masks for a chunk of patch windows from the
+    coefficient windows ``coefs`` (name -> (B, n_sub, nq)): ``band``
+    (B, nN, 3^dim C^2) over all canvas nodes (unmasked, the operator the
+    trace / premultiply products apply), ``A_solve`` (B, nI, nI) the
     window-interior SPD block (row-cleared reference operator, unit
     diagonal on masked rows, LOD.cc:537-546), ``PT_m`` (B, nI, cD) and the
-    coarse-cell validity ``cvd`` (B, cD)."""
-    dt = tab.PT.dtype
+    coarse-dof validity ``cvd`` (B, cD)."""
+    dt, C = tab.PT.dtype, tab.C
     in_sub = _inside(tab.sub_coords, nlo, nhi - 1, strict=False)
-    coefs = {"alpha": coef * in_sub[..., None].to(dt)}
+    coefs = {k: coefs[k] * in_sub[..., None].to(dt) for k in tab.coef_names}
     node_int = _inside(tab.int_coords, nlo, nhi, strict=True)
     m = node_int.to(dt)                                       # (B, n_int)
     band = assemble_bands(coefs, tab.band_tensors, tab.sub_dims)
     B = band.shape[0]
     band_I = band.reshape((B,) + tab.grid_rev + (-1,))[tab.inner]
-    band_I = band_I.reshape(B, tab.nI, -1)
+    band_I = band_I.reshape(B, tab.n_int, -1, C, C)
     nb_in = _inside(tab.nb_coords, nlo, nhi, strict=True).to(dt)
-    band_s = band_I * (m[:, :, None] * nb_in)
-    band_s[:, :, tab.center_o] += 1.0 - m
+    band_s = band_I * (m[:, :, None] * nb_in)[..., None, None]
+    eye = torch.eye(C, dtype=dt, device=band.device)
+    band_s[:, :, tab.center_o] += eye * (1.0 - m)[:, :, None, None]
     A_solve = bands_to_dense_mm(band_s, *tab.placement)
     cell_valid = ((tab.cell_lo[None] >= nlo[:, None])
                   & (tab.cell_lo[None] + tab.s <= nhi[:, None])).all(-1)
-    cvd = cell_valid.to(dt)                                   # (B, cD)
-    PT_m = tab.PT_I[None] * m[:, :, None] * cvd[:, None, :]
+    cvd = cell_valid.to(dt).repeat_interleave(C, dim=1)       # (B, cD)
+    m_d = m.repeat_interleave(C, dim=1)                       # (B, nI)
+    PT_m = tab.PT_I[None] * m_d[:, :, None] * cvd[:, None, :]
     return band, A_solve, PT_m, cvd
 
 
@@ -179,46 +197,60 @@ def edge_masks(tab: UniformTables, nlo, nhi, sides):
 
 
 def scatter_interior(tab: UniformTables, v):
-    """(B, nI, k) -> (B, nD, k) zero-extended onto the canvas nodes."""
+    """(B, nI, k) -> (B, nD, k) zero-extended onto the canvas dofs."""
     B, _, k = v.shape
-    z = v.new_zeros((B,) + tab.grid_rev + (k,))
+    z = v.new_zeros((B,) + tab.grid_rev + (tab.C, k))
     z[tab.inner] = v.reshape((B,) + tuple(g - 2 for g in tab.grid_rev)
-                             + (k,))
-    return z.reshape(B, tab.n_nodes, k)
+                             + (tab.C, k))
+    return z.reshape(B, tab.n_nodes * tab.C, k)
 
 
 def stencil_apply(tab: UniformTables, band, X_int):
-    """Y = A[:, interior] @ X through the nodal stencil (K3): band
-    (B, nN, 3^dim), X (B, nI, k) -> (B, nN, k).  Wrap-around flat positions
-    read the zero padding or carry zero band weight."""
-    Xz = scatter_interior(tab, X_int)
-    Xp = F.pad(Xz, (0, 0, tab.shiftN, tab.shiftN))[:, None]
-    return stencil_trace(band.contiguous(), Xp, tab.shiftN,
-                         tab.offs_flat)[:, 0]
+    """Y = A[:, interior] @ X through the nodal stencil (K3 / K7): band
+    (B, nN, 3^dim C^2), X (B, nI, k) -> (B, nD, k).  The dofs go to the
+    trace's (B, C, nN, k) layout and back.  Wrap-around flat positions read
+    the zero padding or carry zero band weight."""
+    B, _, k = X_int.shape
+    C, nN = tab.C, tab.n_nodes
+    Xz = scatter_interior(tab, X_int).reshape(B, nN, C, k).transpose(1, 2)
+    Xp = F.pad(Xz, (0, 0, tab.shiftN, tab.shiftN))
+    S = stencil_trace(band.contiguous(), Xp.contiguous(), tab.shiftN,
+                      tab.offs_flat)                          # (B, C, nN, k)
+    return S.transpose(1, 2).reshape(B, nN * C, k)
 
 
 def trace_S_chunk(tab: UniformTables, band, X, nlo, nhi, sides):
     """99-boundary trace product S = A X (reference boundary-trace rows,
     LOD.cc:520-528) -> (S99 (B, nD, k), is99d (B, nD))."""
     _, is99 = edge_masks(tab, nlo, nhi, sides)
-    is99d = is99.to(X.dtype)
+    is99d = is99.to(X.dtype).repeat_interleave(tab.C, dim=1)
     return stencil_apply(tab, band, X) * is99d[:, :, None], is99d
 
 
+def _center_masks(tab: UniformTables, cvd):
+    """One-hot columns of the C central coarse dofs (cD, C) and the
+    per-component column masks (1 - onehot) * cvd (B, cD, C)."""
+    cens = tab.center_cell * tab.C + torch.arange(tab.C, device=cvd.device)
+    ar = torch.arange(tab.cD, device=cvd.device)
+    onehots = (ar[:, None] == cens[None, :]).to(cvd.dtype)
+    return onehots, (1.0 - onehots)[None] * cvd[:, :, None]
+
+
 def finish_pre_from_S(tab: UniformTables, S99, Tinv, cvd, is99d):
-    """Gram G = diag(m) F diag(m) and projection g0 = m * F[:, cen] of the
-    SLOD least squares, F = BD^T BD with BD = (S - PT_b) T^-1
-    (LOD.cc:596-671).  Returns (B, 1, cD, cD) and (B, 1, cD)."""
+    """Grams G_d = diag(m_d) F diag(m_d) and projections g0_d = m_d *
+    F[:, cen_d] of the SLOD least squares, one per component d, from one
+    F = BD^T BD with BD = (S - PT_b) T^-1 (LOD.cc:596-671).  Returns
+    (B, C, cD, cD) and (B, C, cD)."""
     PT_b = tab.PT[None] * is99d[:, :, None] * cvd[:, None, :]
     BD = (S99 - PT_b) @ Tinv
     Fm = BD.mT @ BD
-    cen = tab.center_cell
-    onehot = torch.zeros(tab.cD, dtype=cvd.dtype, device=cvd.device)
-    onehot[cen] = 1.0
-    colmask = (1.0 - onehot)[None] * cvd
-    G = Fm * colmask[:, :, None] * colmask[:, None, :]
-    g0 = Fm[:, :, cen] * colmask
-    return G[:, None], g0[:, None]
+    _, colmasks = _center_masks(tab, cvd)
+    Gs, g0s = [], []
+    for d in range(tab.C):
+        cm = colmasks[:, :, d]
+        Gs.append(Fm * cm[:, :, None] * cm[:, None, :])
+        g0s.append(Fm[:, :, tab.center_cell * tab.C + d] * cm)
+    return torch.stack(Gs, dim=1), torch.stack(g0s, dim=1)
 
 
 def jacobi_dvec(tab: UniformTables, lam, V, g0):
@@ -234,36 +266,46 @@ def jacobi_dvec(tab: UniformTables, lam, V, g0):
 
 def finish_post_dvec(tab: UniformTables, band, Ainv_PT, Tinv, dvec, cvd,
                      nlo, nhi, sides):
-    """Stabilized candidate from the coefficients dvec (B, cD), and the
-    canvases phi, A_semi phi (LOD.cc:727-765) -> (B, nN, 1, 1) each."""
+    """The C stabilized candidates from the coefficients dvec (B, C, cD),
+    all in one matmul chain, and the canvases phi, A_semi phi
+    (LOD.cc:727-765) -> (B, nN, C, C) each."""
     isdom, _ = edge_masks(tab, nlo, nhi, sides)
-    cen = tab.center_cell
-    onehot = torch.zeros(tab.cD, dtype=cvd.dtype, device=cvd.device)
-    onehot[cen] = 1.0
-    colmask = (1.0 - onehot)[None] * cvd
-    c = Tinv @ (onehot[None] + dvec * colmask)[:, :, None]    # (B, cD, 1)
-    phi_int = Ainv_PT @ c                                     # (B, nI, 1)
+    onehots, colmasks = _center_masks(tab, cvd)
+    Dm = onehots[None] + dvec.mT * colmasks                   # (B, cD, C)
+    phi_int = Ainv_PT @ (Tinv @ Dm)                           # (B, nI, C)
     phi_int = phi_int / torch.sqrt((phi_int ** 2).sum(1, keepdim=True))
     phi = scatter_interior(tab, phi_int)
     # A_semi phi == A[:, interior] phi_int with domain-boundary rows zeroed
     Aphi = stencil_apply(tab, band, phi_int)
-    Aphi = torch.where(isdom[:, :, None], 0.0, Aphi)
-    B = phi.shape[0]
-    return phi.reshape(B, tab.n_nodes, 1, 1), Aphi.reshape(B, tab.n_nodes,
-                                                           1, 1)
+    isdom_d = isdom.repeat_interleave(tab.C, dim=1)
+    Aphi = torch.where(isdom_d[:, :, None], 0.0, Aphi)
+    B, C = phi.shape[0], tab.C
+    return (phi.reshape(B, tab.n_nodes, C, C),
+            Aphi.reshape(B, tab.n_nodes, C, C))
 
 
-def uniform_chunk(tab: UniformTables, coef, nlo, nhi, sides):
-    """One chunk of patches: coefficient windows (B, n_sub, nq) and window
-    data -> (Phi, APhi) canvases (B, nN, 1, 1) (``_uniform_chunk_fn``)."""
-    band, A_solve, PT_m, cvd = prep(tab, coef, nlo, nhi)
-    Ainv_PT, T_raw = fused_spd_multirhs(A_solve, PT_m)
+def patch_solve(tab: UniformTables, A_solve, PT_m):
+    """(X = A^-1 PT, T = PT^T X) by K1 (``"fused"``) or by the Schur split
+    with K6 leaves (``"fused_split"``)."""
+    if tab.solver_mode == "fused_split":
+        return fused_spd_multirhs_split(A_solve, PT_m, nb=tab.panel_nb)
+    return fused_spd_multirhs(A_solve, PT_m)
+
+
+def uniform_chunk(tab: UniformTables, coefs, nlo, nhi, sides):
+    """One chunk of patches: coefficient windows (name -> (B, n_sub, nq))
+    and window data -> (Phi, APhi) canvases (B, nN, C, C)
+    (``_uniform_chunk_fn``)."""
+    band, A_solve, PT_m, cvd = prep(tab, coefs, nlo, nhi)
+    Ainv_PT, T_raw = patch_solve(tab, A_solve, PT_m)
+    del A_solve
     T = T_raw / tab.Hdim + torch.diag_embed(1.0 - cvd)
     Tinv = spd_inverse_schur(T)
     S99, is99d = trace_S_chunk(tab, band, Ainv_PT, nlo, nhi, sides)
     G, g0 = finish_pre_from_S(tab, S99, Tinv, cvd, is99d)
-    B = G.shape[0]
-    G, g0 = G.reshape(B, tab.cD, tab.cD), g0.reshape(B, tab.cD)
+    del S99
+    B, C = G.shape[:2]
+    G, g0 = G.reshape(B * C, tab.cD, tab.cD), g0.reshape(B * C, tab.cD)
     if tab.spec_mode == "smallk":
         dvec = smallk_truncated_dvec(G, g0, k=tab.k_eff,
                                      power_steps=tab.smallk_power,
@@ -274,7 +316,8 @@ def uniform_chunk(tab: UniformTables, coef, nlo, nhi, sides):
         lam, V = jacobi_eigh_factor(G, sweeps=tab.sweeps, tol=tab.eig_tol,
                                     block=tab.eig_block or 16)
         dvec = jacobi_dvec(tab, lam, V, g0)
-    return finish_post_dvec(tab, band, Ainv_PT, Tinv, dvec, cvd, nlo, nhi,
+    return finish_post_dvec(tab, band, Ainv_PT, Tinv,
+                            dvec.reshape(B, C, tab.cD), cvd, nlo, nhi,
                             sides)
 
 

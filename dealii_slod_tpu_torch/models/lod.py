@@ -4,10 +4,12 @@ the stencil coarse operator, and the coarse CG solve.
 
 The tables are tensors on the ``device`` given to the constructor, the
 card unless the caller asks for the CPU.  The ported route is the 3D/2D
-scalar diffusion SLOD step with the fused patch solver and either the smallk
-spectral stage (``eig_solver="auto"`` on the card in float32, or
-``"smallk"``) or the Jacobi stage (``"jacobi"``); every other knob value
-raises ``NotImplementedError`` naming its ROADMAP.md entry."""
+SLOD step of scalar diffusion (C = 1) and linear elasticity (C = dim), with
+the fused patch solver or its 2x2 Schur split (``patch_solver="auto"``
+picks by the reference's size rule) and either the smallk spectral stage
+(``eig_solver="auto"`` on the card in float32, or ``"smallk"``) or the
+Jacobi stage (``"jacobi"``); every other knob value raises
+``NotImplementedError`` naming its ROADMAP.md entry."""
 
 from __future__ import annotations
 
@@ -45,10 +47,34 @@ def spectral_mode(cfg: SLODConfig, device: torch.device) -> str:
             else "lapack")
 
 
+def patch_solver_mode(cfg: SLODConfig, C: int, sc: ShapeClass) -> str:
+    """The patch solver ``patch_solver`` names: "auto" applies the
+    reference's size rule (``models/basis.py: _fused_solver_mode``) on any
+    device and dtype -- "fused" when the fused kernel's estimate fits
+    12 MiB (3D l=2 diffusion sits exactly at it), else "fused_split" when
+    a half split fits 13 MiB (3D l=2 elasticity), else "lax" (not ported).
+    The rule only picks the structure the reference's accelerator path
+    runs; the card has no such limits."""
+    mode = cfg.patch_solver
+    if mode != "auto":
+        return mode
+    n = -(-sc.n_interior * C // 128) * 128
+    k = -(-sc.n_coarse_dofs_local // 128) * 128
+    bs = max(1, cfg.fused_block)
+    rhs_bufs = 2 if bs >= 4 else 4
+    if 4 * (bs * n * n + rhs_bufs * bs * n * k) <= 12 * 2 ** 20:
+        return "fused"
+    n1 = 128 * (-(-n // 256))
+    k1 = -(-(n - n1 + sc.n_coarse_dofs_local) // 128) * 128
+    return "fused_split" if 4 * (n1 * n1 + n1 * k1) <= 13 * 2 ** 20 \
+        else "lax"
+
+
 def check_supported(cfg: SLODConfig, problem, device: torch.device) -> None:
     """Refuse every knob value the port does not implement."""
-    if problem.n_components != 1:
-        _not_ported("C > 1 (elasticity)", "9")
+    C = problem.n_components
+    if C not in (1, cfg.dim):
+        _not_ported(f"C = {C} components in {cfg.dim}D", "9")
     if cfg.kernel_mode != "uniform":
         _not_ported(f"kernel_mode={cfg.kernel_mode!r}", "10")
     if not (cfg.lod_stabilization and cfg.oversampling > 0):
@@ -57,9 +83,8 @@ def check_supported(cfg: SLODConfig, problem, device: torch.device) -> None:
     if mode not in ("smallk", "jacobi"):
         _not_ported(f"eig_solver={cfg.eig_solver!r} (the {mode!r} spectral "
                     f"stage on {device.type})", "10")
-    if cfg.patch_solver not in ("auto", "fused"):
-        _not_ported(f"patch_solver={cfg.patch_solver!r}",
-                    "9" if cfg.patch_solver == "fused_split" else "10")
+    if cfg.patch_solver not in ("auto", "fused", "fused_split"):
+        _not_ported(f"patch_solver={cfg.patch_solver!r}", "10")
     if cfg.fused_nb != 64:
         _not_ported(f"fused_nb={cfg.fused_nb} (the kernel's panel is 64)",
                     "10")
@@ -71,18 +96,26 @@ def check_supported(cfg: SLODConfig, problem, device: torch.device) -> None:
         _not_ported(f"coarse_solve={cfg.coarse_solve!r}", "7")
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype {cfg.dtype!r}")
-    if (cfg.fused_algo != "ldl" or cfg.fused_block != 4 or cfg.solver_gj2):
-        # TPU VMEM-placement / issue-order variants of K1's contract (K9)
+    if (cfg.fused_algo != "ldl" or cfg.fused_block != 4 or cfg.solver_gj2
+            or cfg.split_bs != 4):
+        # TPU VMEM-placement / batching / issue-order variants of K1's,
+        # K6's and K2's contracts (K9)
         warnings.warn(
             f"fused_algo={cfg.fused_algo!r}, fused_block={cfg.fused_block},"
-            f" solver_gj2={cfg.solver_gj2} are TPU variants of the fused "
-            "patch solve; the one CUDA kernel K1 serves them all",
-            stacklevel=3)
+            f" solver_gj2={cfg.solver_gj2}, split_bs={cfg.split_bs} are TPU "
+            "variants of the patch solve; the CUDA kernels K1, K6 and K2 "
+            "serve them all", stacklevel=3)
+    if cfg.trace_impl not in ("slice", "c1"):
+        # TPU rotate / unroll variants of the trace's contract (K9)
+        warnings.warn(
+            f"trace_impl={cfg.trace_impl!r} is a TPU variant of the stencil "
+            "trace; the CUDA kernel K3 (C = 1) / K7 (C > 1) serves every "
+            "impl value", stacklevel=3)
 
 
 class LODSolver:
-    """The SLOD diffusion pipeline on one torch device, the card unless
-    ``device="cpu"`` is asked for.
+    """The SLOD pipeline (diffusion or elasticity) on one torch device, the
+    card unless ``device="cpu"`` is asked for.
 
     ``eig_block``: matrices that share the adaptive Jacobi stop in the
     plain versions of K5 and K8 (CPU tensors).  None does what the TPU
@@ -121,7 +154,7 @@ class LODSolver:
         self.coef_q = {k: torch.as_tensor(v, dtype=dt, device=dev)
                        for k, v in problem.coefficients(self.qpts).items()}
         self.coef_names = sorted(self.coef_q)
-        if self.coef_names != ["alpha"]:
+        if self.coef_names != (["alpha"] if C == 1 else ["lam", "mu"]):
             _not_ported(f"coefficients {self.coef_names}", "12")
         self.conn = torch.as_tensor(global_connectivity(self.grid),
                                     device=dev)
@@ -156,6 +189,13 @@ class LODSolver:
             (self.stencil_offsets == 0).all(axis=1))[0][0])
 
         self.canvas_class = ShapeClass((2 * ell + 1,) * cfg.dim, self.grid)
+        self.solver_mode = patch_solver_mode(cfg, C, self.canvas_class)
+        if self.solver_mode not in ("fused", "fused_split"):
+            _not_ported(f"patch_solver={cfg.patch_solver!r} resolving to "
+                        f"{self.solver_mode!r}", "10")
+        if self.solver_mode == "fused_split" and cfg.panel_nb % 64:
+            _not_ported(f"panel_nb={cfg.panel_nb} (the split's leaf kernel "
+                        "K6 tiles by 64)", "9")
         self.canvas_center_cell = int(ravel(np.full(cfg.dim, ell),
                                             np.full(cfg.dim, 2 * ell + 1)))
         self._tables = None
@@ -200,7 +240,8 @@ class LODSolver:
             self._tables = basis.uniform_tables(
                 self.cfg, self.grid, self.et, self.canvas_class,
                 self.canvas_center_cell, self.device, self.dtype,
-                self.eig_block, self.spec_mode)
+                self.eig_block, self.spec_mode, self.solver_mode,
+                self.coef_names)
         return self._tables
 
     def _use_coef_windows(self) -> bool:
@@ -245,22 +286,24 @@ class LODSolver:
         return self._inputs
 
     def compute_basis(self, coefs=None):
-        """Basis canvases ``self.Phi`` / ``self.APhi`` (P, canvas_n, 1, 1),
+        """Basis canvases ``self.Phi`` / ``self.APhi`` (P, canvas_n, C, C),
         chunk by chunk (``cfg.patch_chunk`` patches; 0 = all at once)."""
-        coef = (self.coef_q if coefs is None else coefs)["alpha"]
+        coefs = self.coef_q if coefs is None else coefs
         tab = self._uniform_tables()
         gsub, nlo_t, nhi_t, sides_t = self._uniform_inputs_t()
-        cw = (basis.coef_windows(self.cfg, self.grid, coef) if gsub is None
-              else coef[gsub])
-        P = self.topo.n_patches
-        Phi = torch.empty((P, self.canvas_n, 1, 1), dtype=self.dtype,
+        cw = {k: (basis.coef_windows(self.cfg, self.grid, coefs[k])
+                  if gsub is None else coefs[k][gsub])
+              for k in self.coef_names}
+        P, C = self.topo.n_patches, self.C
+        Phi = torch.empty((P, self.canvas_n, C, C), dtype=self.dtype,
                           device=self.device)
         APhi = torch.empty_like(Phi)
         step = self.cfg.patch_chunk or P
         for lo in range(0, P, step):
             hi = min(P, lo + step)
             Phi[lo:hi], APhi[lo:hi] = basis.uniform_chunk(
-                tab, cw[lo:hi], nlo_t[lo:hi], nhi_t[lo:hi], sides_t[lo:hi])
+                tab, {k: v[lo:hi] for k, v in cw.items()}, nlo_t[lo:hi],
+                nhi_t[lo:hi], sides_t[lo:hi])
         self.Phi, self.APhi = Phi, APhi
         return Phi, APhi
 
@@ -272,7 +315,7 @@ class LODSolver:
         return stencil.stencil_build_cells(Phi, APhi, self._stencil_tables)
 
     def assemble_coarse_operator(self):
-        """A_LOD as a stencil (P, S, 1, 1) from ``self.Phi`` / ``APhi``."""
+        """A_LOD as a stencil (P, S, C, C) from ``self.Phi`` / ``APhi``."""
         self.A_stencil = self._stencil_build(self.Phi, self.APhi)
         return self.A_stencil
 
@@ -293,7 +336,8 @@ class LODSolver:
         return lambda u: stencil.coarse_matvec_with(A_st, u, nbr, valid)
 
     def _coarse_cg(self, A_st, rhs_c):
-        diag = A_st[:, self.center_offset_idx, 0, 0][:, None]
+        # block-diagonal Jacobi: the C x C centre block's diagonal
+        diag = torch.einsum("pdd->pd", A_st[:, self.center_offset_idx])
         rc = self.cfg.coarse_solver
         return cg(self._coarse_matvec_fn(A_st), rhs_c,
                   max_steps=rc.max_steps, tolerance=rc.tolerance,
@@ -335,8 +379,8 @@ class LODSolver:
     def build_step(self, mesh=None):
         """Return the end-to-end step
 
-            step(coefs: {"alpha": (n_fine_cells, nq)}, fem_rhs: (n_nodes, 1))
-                -> (coarse solution (P, 1), A_stencil (P, S, 1, 1))
+            step(coefs: {name: (n_fine_cells, nq)}, fem_rhs: (n_nodes, C))
+                -> (coarse solution (P, C), A_stencil (P, S, C, C))
 
         covering basis construction -> coarse-operator assembly -> CG.
         The step also leaves ``Phi``, ``APhi``, ``A_stencil``,

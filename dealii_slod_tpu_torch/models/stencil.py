@@ -2,8 +2,9 @@
 stencil.py``): ``A_LOD[q, p] = phi_q . (A phi_p)`` (reference
 ``assemble_global_matrix``, source/LOD.cc:860-973) as a (P, S, C, C)
 stencil over relative window offsets, built cell by cell from the basis
-canvases, and the coarse matvec that drives the CG.  Scalar problems
-(C = 1)."""
+canvases, and the coarse matvec that drives the CG.  C solution components
+(C = 1 diffusion, C = dim elasticity); coarse dofs are patch-major,
+p * C + d."""
 
 from __future__ import annotations
 
@@ -110,47 +111,64 @@ def stencil_tables(cfg, grid, canvas_dims, stencil_offsets, device,
 
 def stencil_build_cells(Phi, APhi, tab: dict):
     """Cell-decomposed stencil build (``_stencil_build_cells``) with the
-    ``stencil_tables`` ``tab``:
+    ``stencil_tables`` ``tab``, canvases (P, nN, C, C):
 
     1. canvas picks Y[q, (k, o)] = Phi_q[cnode(k, o)] per side,
     2. lattice alignment Pc[e, k, o] = Y[e + (ell - k), k, o],
-    3. owned-node contraction T[e, k, m] = sum_o Pc[e, k, o] Ac[e, m, o],
+    3. owned-node contraction T[e, k, d, m, f] = sum_{o, c}
+       Pc[e, k, o, c, d] Ac[e, m, o, c, f],
     4. patch rows G2[q, k1] = T[q + (k1 - ell), k1],
-    5. slot correlation as one 0/1 matmul -> A_st (P, S, 1, 1)."""
-    P = Phi.shape[0]
+    5. slot correlation as one 0/1 matmul -> A_st (P, S, C, C).
+
+    The (P, K C, K2 C) intermediate is built whole (the reference splits it
+    into ~1 GB pieces for its 16 GB card): the sums run in another order
+    and agree to rounding."""
+    P, C = Phi.shape[0], Phi.shape[-1]
     K, K2, O = tab["K"], tab["K2"], tab["O"]
 
     def side_table(X, which, shift):
-        Y = X.reshape(P, -1)[:, tab["cnode" + which]] * tab["incv" + which]
-        return shift_slots(Y.reshape(P, -1, O), tab[shift])
+        Y = (X.reshape(P, -1, C * C)[:, tab["cnode" + which]]
+             * tab["incv" + which][None, :, None])
+        return shift_slots(Y.reshape(P, -1, O * C * C), tab[shift])
 
-    Pc = side_table(Phi, "1", "shift1")                    # (E, K, O)
+    Pc = side_table(Phi, "1", "shift1")                    # (E, K, O C C)
     # owned-node mask on one side only (idempotent in the product)
-    Ac = side_table(APhi, "2", "shift2") * tab["own"][:, None, :]
-    Tk = Pc @ Ac.mT                                        # (E, K, K2)
-    G2 = shift_slots(Tk, tab["shift_rows"])
-    A_st = G2.reshape(P, K * K2) @ tab["M3"]
-    return A_st.reshape(P, -1, 1, 1)
+    Ac = side_table(APhi, "2", "shift2").reshape(P, K2, O, C * C) \
+        * tab["own"][:, None, :, None]
+    # (e, k, o, c, d) -> (e, (k, d), (o, c)): the contraction is one bmm
+    Pc = Pc.reshape(P, K, O, C, C).permute(0, 1, 4, 2, 3).reshape(
+        P, K * C, O * C)
+    Ac = Ac.reshape(P, K2, O, C, C).permute(0, 1, 4, 2, 3).reshape(
+        P, K2 * C, O * C)
+    Tk = Pc @ Ac.mT                                        # (E, K d, K2 f)
+    del Pc, Ac
+    G2 = shift_slots(Tk.reshape(P, K, -1), tab["shift_rows"])
+    del Tk
+    # (q, k, d, m, f) -> (q, d, f, (k, m)) against the (K K2, S) indicator
+    G2 = G2.reshape(P, K, C, K2, C).permute(0, 2, 4, 1, 3).reshape(
+        P, C * C, K * K2)
+    A_st = G2 @ tab["M3"]                                  # (P, C C, S)
+    return A_st.mT.reshape(P, -1, C, C)
 
 
 def dense_placement(stencil_nbr: np.ndarray, stencil_valid: np.ndarray,
                     device):
-    """Placement of the valid stencil slots in the dense (P, P) coarse
-    matrix: every valid (row q, slot k) is the distinct entry
-    (q, nbr[q, k]).  Returns (q, k, col) index tensors."""
+    """Placement of the valid stencil slots in the dense coarse matrix:
+    every valid (row q, slot k) is the distinct block (q, nbr[q, k]).
+    Returns (q, k, col) index tensors."""
     q, k = np.nonzero(stencil_valid)
     return tuple(torch.as_tensor(a, device=device)
                  for a in (q, k, stencil_nbr[q, k]))
 
 
 def coarse_dense_matrix(A_st, placement) -> torch.Tensor:
-    """Dense (P, P) coarse operator from the stencil blocks (one static,
-    collision-free scatter)."""
+    """Dense (P C, P C) coarse operator from the stencil blocks (P, S, C, C)
+    (one static, collision-free scatter of C x C blocks)."""
     q, k, col = placement
-    P = A_st.shape[0]
-    dense = A_st.new_zeros((P, P))
-    dense[q, col] = A_st[q, k, 0, 0]
-    return dense
+    P, C = A_st.shape[0], A_st.shape[-1]
+    dense = A_st.new_zeros((P, C, P, C))
+    dense[q, :, col, :] = A_st[q, k]
+    return dense.reshape(P * C, P * C)
 
 
 def coarse_matvec_with(A_st, u, nbr: torch.Tensor, valid: torch.Tensor):

@@ -1,13 +1,16 @@
 """Banded Q_iso_Q1 assembly, the global load vector / fine operator, and
-kernel K3, the stencil trace (counterpart of ``dealii_slod_tpu/ops/
+kernels K3 / K7, the stencil trace (counterpart of ``dealii_slod_tpu/ops/
 assembly.py``).
 
 On the uniform subcell grid the patch stiffness is a 3^dim-point nodal
-stencil: ``band[i, o] = sum_{r, q} alpha[subcell(i, r), q] * T[r, q, o]``
-with r the 2^dim subcells adjacent to node i and T read off the reference
-element matrix (``make_band_tensors``).  Everything downstream consumes the
-band; the dense SPD interior block is placed from it by the banded-stride
-embedding (``bands_to_dense_mm``).  Scalar problems (C = 1) only.
+stencil of C x C blocks: ``band[i, o, c, d] = sum_{name, r, q}
+coef_name[subcell(i, r), q] * T_name[r, q, o, c, d]`` with r the 2^dim
+subcells adjacent to node i and T read off the reference element matrix
+(``make_band_tensors``): ``alpha`` for scalar diffusion (C = 1), ``lam``
+and ``mu`` for linear elasticity (C = dim).  Everything downstream consumes
+the band, flat as (nN, 3^dim * C * C) with column o*C*C + c*C + d; the
+dense SPD interior block is placed from it by the banded-stride embedding
+(``bands_to_dense_mm``), dofs interleaved as node * C + c.
 """
 
 from __future__ import annotations
@@ -77,14 +80,16 @@ def node_subcell_windows(coef: torch.Tensor, sub_dims) -> torch.Tensor:
 
 def assemble_bands(coefs: Dict[str, torch.Tensor], band_tensors,
                    sub_dims) -> torch.Tensor:
-    """Nodal-stencil bands (B, n_nodes, 3^dim) of scalar problems from
-    subcell quadrature coefficients (B, n_sub, nq) per name."""
+    """Nodal-stencil bands (B, n_nodes, 3^dim * C * C), flat column
+    o*C*C + c*C + d, from subcell quadrature coefficients (B, n_sub, nq)
+    per name (summed in the order of ``coefs``)."""
     out = None
     for name, coef in coefs.items():
         W = node_subcell_windows(coef, sub_dims)      # (B, n, r, q)
-        T = torch.as_tensor(band_tensors[name][..., 0, 0], dtype=coef.dtype,
+        T = torch.as_tensor(band_tensors[name], dtype=coef.dtype,
                             device=coef.device)
-        term = torch.einsum("bnrq,rqo->bno", W, T)
+        T = T.reshape(T.shape[0], T.shape[1], -1)     # (r, q, o*C*C)
+        term = torch.einsum("bnrq,rqx->bnx", W, T)
         out = term if out is None else out + term
     return out
 
@@ -107,60 +112,81 @@ def band_placement_matrix(node_dims) -> tuple:
 
 def bands_to_dense_mm(band: torch.Tensor, P, shift: int, nN: int
                       ) -> torch.Tensor:
-    """Dense (B, nN, nN) matrices from bands (B, nN, 3^dim) by the
-    banded-stride embedding: row i's width-(nN+1) buffer block is
-    ``band[i] @ P`` and the dense matrix is one flat slice of the
-    (nN, nN+1) buffer.  P's rows are one-hot with distinct columns, so the
-    product is placed by index (the same values, no multiply).  ``P`` may
-    be a tensor on the band's device (no host copy per call)."""
+    """Dense (B, nN C, nN C) matrices from bands (B, nN, 3^dim) (C = 1) or
+    (B, nN, 3^dim, C, C) by the banded-stride embedding.  Row group i (its
+    C dense rows) is one width-C(nN C + 1) buffer row in which entry
+    ((i, c), (i + delta_o, d)) sits at column c*W + (s_o + shift)*C + d
+    (W = nN C), and the dense matrix is one flat slice of the buffer from
+    shift*C on (for C = 1: row i's width-(nN+1) block, ``band[i] @ P``).
+    P's rows are one-hot with distinct columns, so the values are placed
+    by index (no multiply); wrap-around placements carry zero band values.
+    ``P`` may be a tensor on the band's device (no host copy per call)."""
     Bn = band.shape[0]
+    C = 1 if band.dim() == 3 else band.shape[-1]
+    W = nN * C
     cols = torch.as_tensor(P, device=band.device).argmax(1)
-    buf = band.new_zeros((Bn, nN, nN + 1))
-    buf[:, :, cols] = band
-    return buf.reshape(Bn, -1)[:, shift:shift + nN * nN].reshape(Bn, nN, nN)
+    if C > 1:
+        cc = torch.arange(C, device=band.device)
+        cols = (cc[None, :, None] * W + cols[:, None, None] * C
+                + cc[None, None, :]).reshape(-1)      # (o, c, d) flat
+    buf = band.new_zeros((Bn, nN, C * (W + 1)))
+    buf[:, :, cols] = band.reshape(Bn, nN, -1)
+    return buf.reshape(Bn, -1)[:, shift * C:shift * C + nN * C * W].reshape(
+        Bn, nN * C, W)
 
 
 # ---------------------------------------------------------------------------
-# K3: stencil trace
+# K3 / K7: stencil trace
 # ---------------------------------------------------------------------------
 
 def stencil_trace_plain(band: torch.Tensor, Xp: torch.Tensor, shiftN: int,
                         offs_flat) -> torch.Tensor:
-    """Plain version of K3: the 3^dim-term shifted FMA chain
-    S[b, 0, n, :] = sum_o band[b, n, o] * Xp[b, 0, n + shiftN + off_o, :]."""
+    """Plain version of K3 / K7: the 3^dim C^2-term shifted FMA chain
+    S[b, c, n, :] = sum_{o, d} band[b, n, o*C*C + c*C + d]
+    * Xp[b, d, n + shiftN + off_o, :], per c in (o, d) order."""
+    B, C, _, k = Xp.shape
     nN = band.shape[1]
-    acc = None
-    for oi, off in enumerate(offs_flat):
-        s0 = shiftN + int(off)
-        t = band[:, :, oi, None] * Xp[:, 0, s0:s0 + nN, :]
-        acc = t if acc is None else acc + t
-    return acc[:, None]
+    bandr = band.reshape(B, nN, len(offs_flat), C, C)
+    out = []
+    for c in range(C):
+        acc = None
+        for oi, off in enumerate(offs_flat):
+            s0 = shiftN + int(off)
+            for d in range(C):
+                t = bandr[:, :, oi, c, d, None] * Xp[:, d, s0:s0 + nN, :]
+                acc = t if acc is None else acc + t
+        out.append(acc)
+    return torch.stack(out, dim=1)
 
 
 def stencil_trace(band: torch.Tensor, Xp: torch.Tensor, shiftN: int,
                   offs_flat) -> torch.Tensor:
-    """Kernel K3 (replaces ``dealii_slod_tpu/ops/assembly.py:
-    stencil_trace_pallas``, C = 1, ``impl="c1"/"c1roll"``).
+    """Kernels K3 (C = 1) and K7 (C = 2, 3) (replace ``dealii_slod_tpu/ops/
+    assembly.py: stencil_trace_pallas``: C = 1 ``impl="c1"/"c1roll"``, and
+    the C > 1 ``impl`` values, unrolled and offset-grid alike).
 
-    band (B, nN, 3^dim), Xp (B, 1, nNp, k) zero-padded by ``shiftN`` on the
-    node axis -> S (B, 1, nN, k).  A CPU tensor takes the plain version; a
-    CUDA tensor launches ``csrc/stencil_trace.cu``."""
+    band (B, nN, 3^dim * C * C) flat with column o*C*C + c*C + d, Xp
+    (B, C, nNp, k) zero-padded by ``shiftN`` on the node axis -> S
+    (B, C, nN, k).  A CPU tensor takes the plain version; a CUDA tensor
+    launches ``csrc/stencil_trace.cu``."""
     if not Xp.is_cuda:
         return stencil_trace_plain(band, Xp, shiftN, offs_flat)
     B, C, nNp, k = Xp.shape
-    nN, n_off = band.shape[1], band.shape[2]
-    if C != 1 or band.shape[0] != B or n_off != len(offs_flat) or n_off > 27:
+    nN, n_off = band.shape[1], len(offs_flat)
+    if (C not in (1, 2, 3) or band.shape[0] != B
+            or band.shape[2] != n_off * C * C or n_off > 27):
         raise ValueError(f"stencil_trace: band {tuple(band.shape)} and Xp "
-                         f"{tuple(Xp.shape)} do not match (C = 1, <= 27 "
+                         f"{tuple(Xp.shape)} do not match (C in 1..3, <= 27 "
                          f"offsets)")
     offs = np.asarray([shiftN + int(o) for o in offs_flat], np.int32)
     if offs.min() < 0 or offs.max() + nN > nNp:
         raise ValueError("stencil_trace: shifted windows leave the padding")
     kernels.check_cuda("stencil_trace", band, Xp)
-    S = torch.empty((B, 1, nN, k), dtype=Xp.dtype, device=Xp.device)
-    kernels.launch("K3 stencil_trace", "slod_stencil_trace", Xp.dtype,
-                   Xp.device, band.data_ptr(), Xp.data_ptr(), S.data_ptr(),
-                   B, nN, nNp, k, n_off, offs.ctypes.data)
+    S = torch.empty((B, C, nN, k), dtype=Xp.dtype, device=Xp.device)
+    kernels.launch("K3 stencil_trace" if C == 1 else "K7 stencil_trace",
+                   "slod_stencil_trace", Xp.dtype, Xp.device,
+                   band.data_ptr(), Xp.data_ptr(), S.data_ptr(), B, C, nN,
+                   nNp, k, n_off, offs.ctypes.data)
     return S
 
 
@@ -169,29 +195,50 @@ def stencil_trace(band: torch.Tensor, Xp: torch.Tensor, shiftN: int,
 # ---------------------------------------------------------------------------
 
 class FineOperator:
-    """Matrix-free global Q_iso_Q1 stiffness operator on the fine grid
-    (scalar diffusion): u -> scatter_add(conn, Ksub(alpha) @ gather(conn,
-    u)).  Only the unconstrained matvec is ported (the lifting of the
-    Dirichlet data in ``assemble_fine_rhs``)."""
+    """Matrix-free global Q_iso_Q1 stiffness operator on the fine grid:
+    u -> scatter_add(conn, Ksub(coefs) @ gather(conn, u)), scalar diffusion
+    (``alpha``) or linear elasticity (``mu``, ``lam``).  Only the
+    unconstrained matvec is ported (the lifting of the Dirichlet data in
+    ``assemble_fine_rhs``)."""
 
     def __init__(self, et: ElementTensors, conn: torch.Tensor,
                  coefs: Dict[str, torch.Tensor]):
-        if set(coefs) != {"alpha"}:
+        if set(coefs) not in ({"alpha"}, {"lam", "mu"}):
             raise NotImplementedError(
-                "FineOperator: only scalar diffusion ('alpha') is ported "
-                "(ROADMAP.md Queue 1 item 12)")
+                f"FineOperator: coefficients {sorted(coefs)} (only "
+                "diffusion's 'alpha' and elasticity's 'lam', 'mu' are "
+                "ported; ROADMAP.md Queue 1 item 12)")
         self.conn = conn.long()
-        self.alpha = coefs["alpha"]
-        self._K = torch.as_tensor(et.K_grad, dtype=self.alpha.dtype,
-                                  device=self.alpha.device)
+        self.coefs = coefs
+        c0 = next(iter(coefs.values()))
+
+        def t(a):
+            return torch.as_tensor(a, dtype=c0.dtype, device=c0.device)
+
+        self._K = {"alpha": t(et.K_grad)} if "alpha" in coefs else {
+            "mu": t(et.K_mu), "lam": t(et.K_lam)}
 
     def _apply_raw(self, u: torch.Tensor) -> torch.Tensor:
-        """Unconstrained matvec, u: (n_nodes, 1) -> (n_nodes, 1)."""
-        ue = u[self.conn, 0]                                 # (n_sub, m)
-        out_s = torch.einsum("sq,qij,sj->si", self.alpha, self._K, ue)
-        out = torch.zeros_like(u[:, 0])
-        out.index_add_(0, self.conn.reshape(-1), out_s.reshape(-1))
-        return out[:, None]
+        """Unconstrained matvec, u: (n_nodes, C) -> (n_nodes, C)."""
+        if "alpha" in self.coefs:
+            ue = u[self.conn, 0]                             # (n_sub, m)
+            out_s = torch.einsum("sq,qij,sj->si", self.coefs["alpha"],
+                                 self._K["alpha"], ue)
+            out = torch.zeros_like(u[:, 0])
+            out.index_add_(0, self.conn.reshape(-1), out_s.reshape(-1))
+            return out[:, None]
+        ue = u[self.conn]                                    # (n_sub, m, C)
+        uflat = ue.reshape(ue.shape[0], -1)                  # (n_sub, m C)
+        out_flat = None
+        for name in ("mu", "lam"):
+            Ksub = torch.einsum("sq,qIJ->sIJ", self.coefs[name],
+                                self._K[name])
+            term = torch.einsum("sIJ,sJ->sI", Ksub, uflat)
+            out_flat = term if out_flat is None else out_flat + term
+        out = torch.zeros_like(u)
+        out.index_add_(0, self.conn.reshape(-1),
+                       out_flat.reshape(-1, u.shape[1]))
+        return out
 
 
 def assemble_load_vector(et: ElementTensors, conn: torch.Tensor,

@@ -122,10 +122,18 @@ def _jacobi_rows_cuda(G: torch.Tensor, sweeps: int, tol: float,
     kernels.check_cuda("jacobi_eigh", G)
     XT = torch.empty((B, n // 2, n), dtype=G.dtype, device=G.device)
     XB = torch.empty_like(XT)
+    ws = kernels.workspace("K5 jacobi_eigh", "slod_jacobi_rows", G.dtype,
+                           G.device, B, n)
     kernels.launch("K5 jacobi_eigh", "slod_jacobi_rows", G.dtype, G.device,
-                   G.data_ptr(), XT.data_ptr(), XB.data_ptr(), B, n,
-                   sweeps, float(tol), float(null_rel), _eps(G.dtype))
+                   G.data_ptr(), XT.data_ptr(), XB.data_ptr(), _ptr(ws), B,
+                   n, sweeps, float(tol), float(null_rel), _eps(G.dtype))
     return XT, XB
+
+
+def _ptr(ws: torch.Tensor | None) -> int:
+    """Address of a kernel workspace (0: none, the kernel works in shared
+    memory)."""
+    return 0 if ws is None else ws.data_ptr()
 
 
 def _finalize_rows(XT, XB, n0, batch_shape):
@@ -213,15 +221,18 @@ def mgs_qr(X: torch.Tensor) -> torch.Tensor:
     the thin Q of X (B, n, k) by two-pass modified Gram-Schmidt, the same
     contract as a Householder thin Q up to column signs and the completion
     of a rank-deficient block (a null column gives a zero column).  On CUDA
-    one CTA holds each matrix's k columns in shared memory."""
+    one CTA holds each matrix's k columns, in shared memory where they fit
+    and in a global workspace otherwise (the kernel's size rule)."""
     if not X.is_cuda:
         return mgs_qr_plain(X)
     B, n, k = X.shape
     kernels.check_cuda("mgs_qr", X, contiguous=False)
     X = X.contiguous()
     Q = torch.empty_like(X)
+    ws = kernels.workspace("K4 mgs_qr", "slod_mgs_qr", X.dtype, X.device, B,
+                           n, k)
     kernels.launch("K4 mgs_qr", "slod_mgs_qr", X.dtype, X.device,
-                   X.data_ptr(), Q.data_ptr(), B, n, k)
+                   X.data_ptr(), Q.data_ptr(), _ptr(ws), B, n, k)
     return Q
 
 
@@ -251,7 +262,8 @@ def weig(ZT: torch.Tensor, YT: torch.Tensor, sweeps: int = 8,
     eigenpairs of W = Z^T Y from the transposed factors ZT, YT (B, k, n),
     k even, for W = Z^T G Z with G SPD.  Returns (eigenvalues descending
     (B, k), eigenvectors as columns (B, k, k)).  On CUDA one CTA per matrix
-    builds W in shared memory and sweeps it there (each matrix stops on its
+    builds W in its row buffer (shared memory where it fits, a global
+    workspace otherwise) and sweeps it there (each matrix stops on its
     own); ``block`` applies to the plain version only."""
     B, k, n = ZT.shape
     if k % 2 or YT.shape != ZT.shape:
@@ -265,9 +277,11 @@ def weig(ZT: torch.Tensor, YT: torch.Tensor, sweeps: int = 8,
     ZT, YT = ZT.contiguous(), YT.contiguous()
     XT = torch.empty((B, k // 2, k), dtype=ZT.dtype, device=ZT.device)
     XB = torch.empty_like(XT)
+    ws = kernels.workspace("K8 weig", "slod_jacobi_rows", ZT.dtype,
+                           ZT.device, B, k)
     kernels.launch("K8 weig", "slod_weig", ZT.dtype, ZT.device,
                    ZT.data_ptr(), YT.data_ptr(), XT.data_ptr(),
-                   XB.data_ptr(), B, k, n, sweeps, float(tol),
+                   XB.data_ptr(), _ptr(ws), B, k, n, sweeps, float(tol),
                    float(null_rel), _eps(ZT.dtype))
     return _finalize_rows(XT, XB, k, (B,))
 

@@ -1,5 +1,7 @@
 """Batched SPD patch solves: kernel K1 (fused block-LDL^T multi-RHS solve
-with the triple product) and kernel K2 (Gauss-Jordan sweep inverse)
+with the triple product), kernel K6 (its solve-only instance, the leaf of
+the 2x2 Schur split that the elasticity patch solve takes) and kernel K2
+(Gauss-Jordan sweep inverse, and the blocked sweep built on it)
 (counterpart of ``dealii_slod_tpu/ops/patch_solve.py``).
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
@@ -11,8 +13,15 @@ import torch
 
 from dealii_slod_tpu_torch.utils import kernels
 
-NB = 64          # K1 panel width (the kernel's tile size)
+NB = 64          # K1 / K6 panel width (the kernels' tile size)
 GJ_PAD = 128     # K2 pads m up to a multiple of this
+
+# The reference's leaf budget of the Schur split: the TPU's scoped-VMEM
+# budget for one solve-only call (scratch A, 4 n^2 B, plus scratch X,
+# 4 n k B, in float32 whatever the dtype).  It is kept so that the port
+# splits exactly where the reference does and runs the same leaves; the
+# card itself has no such limit.
+SOLVE_VMEM_BUDGET = int(9.5e6)
 
 
 def _pad_spd(A: torch.Tensor, n: int) -> torch.Tensor:
@@ -38,35 +47,145 @@ def fused_spd_multirhs_plain(A: torch.Tensor, B: torch.Tensor):
     return X, B.mT @ X
 
 
+def _ldl_operands(name: str, A: torch.Tensor, B: torch.Tensor):
+    """K1's and K6's operands on CUDA: n and k padded to multiples of 64
+    (unit diagonal on padded rows, zero right-hand sides), the scratch
+    copy of A that the kernel factors in place, X holding B (B -> z -> w
+    -> X in place) and the per-patch workspace NB (NB + k + n)."""
+    P, n0, _ = A.shape
+    k0 = B.shape[-1]
+    if B.shape[:2] != (P, n0) or A.shape[2] != n0:
+        raise ValueError(f"{name}: A {tuple(A.shape)} and B "
+                         f"{tuple(B.shape)} do not match")
+    # A and B are copied into the padded, contiguous operands below
+    kernels.check_cuda(name, A, B, contiguous=False)
+    n = -(-n0 // NB) * NB
+    k = -(-k0 // NB) * NB
+    X = B.new_zeros((P, n, k))
+    X[:, :n0, :k0] = B
+    work = torch.empty((P, NB * (NB + k + n)), dtype=A.dtype,
+                       device=A.device)
+    return _pad_spd(A, n), X, work
+
+
 def fused_spd_multirhs(A: torch.Tensor, B: torch.Tensor):
     """Kernel K1 (replaces ``dealii_slod_tpu/ops/patch_solve.py:
     fused_spd_multirhs``, ``algo="ldl"``, nb = 64).
 
     A (P, n, n) SPD, B (P, n, k) -> (X = A^-1 B (P, n, k),
     T = B^T A^-1 B (P, k, k)).  On CUDA, n and k are padded to multiples
-    of 64 (unit diagonal on padded rows, zero right-hand sides) and one CTA
-    factors each patch in place on a scratch copy of A."""
+    of 64 and one CTA factors each patch in place on a scratch copy of A
+    (``_ldl_operands``)."""
     if not A.is_cuda:
         return fused_spd_multirhs_plain(A, B)
-    P, n0, _ = A.shape
-    k0 = B.shape[-1]
-    if B.shape[:2] != (P, n0) or A.shape[2] != n0:
-        raise ValueError(f"fused_spd_multirhs: A {tuple(A.shape)} and B "
-                         f"{tuple(B.shape)} do not match")
-    # A and B are copied into the padded, contiguous operands below
-    kernels.check_cuda("fused_spd_multirhs", A, B, contiguous=False)
-    n = -(-n0 // NB) * NB
-    k = -(-k0 // NB) * NB
-    A_scr = _pad_spd(A, n)                 # factored in place
-    X = B.new_zeros((P, n, k))             # B -> z -> w -> X in place
-    X[:, :n0, :k0] = B
+    A_scr, X, work = _ldl_operands("fused_spd_multirhs", A, B)
+    P, n, k = X.shape
     T = torch.empty((P, k, k), dtype=A.dtype, device=A.device)
-    work = torch.empty((P, NB * (NB + k + n)), dtype=A.dtype,
-                       device=A.device)
     kernels.launch("K1 fused_spd_multirhs", "slod_fused_spd_multirhs",
                    A.dtype, A.device, A_scr.data_ptr(), X.data_ptr(),
                    T.data_ptr(), work.data_ptr(), P, n, k)
+    n0, k0 = B.shape[1:]
     return X[:, :n0, :k0].contiguous(), T[:, :k0, :k0].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K6: solve-only leaf, and the recursive 2x2 Schur split
+# ---------------------------------------------------------------------------
+
+def spd_multirhs_solve_plain(A: torch.Tensor, B: torch.Tensor):
+    """Plain version of K6: Cholesky solve, X = A^-1 B."""
+    return torch.cholesky_solve(B, torch.linalg.cholesky(A))
+
+
+def spd_multirhs_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Kernel K6 (replaces ``dealii_slod_tpu/ops/patch_solve.py:
+    spd_multirhs_solve_dma``): A (P, n, n) SPD, B (P, n, k) -> X = A^-1 B.
+    On CUDA, one CTA factors each patch in place on a scratch copy of A, as
+    K1 does (``_ldl_operands``), without the triple product."""
+    if not A.is_cuda:
+        return spd_multirhs_solve_plain(A, B)
+    A_scr, X, work = _ldl_operands("spd_multirhs_solve", A, B)
+    P, n, k = X.shape
+    kernels.launch("K6 spd_multirhs_solve", "slod_spd_multirhs_solve",
+                   A.dtype, A.device, A_scr.data_ptr(), X.data_ptr(),
+                   work.data_ptr(), P, n, k)
+    n0, k0 = B.shape[1:]
+    return X[:, :n0, :k0]
+
+
+def _solve_fits(n: int, k: int, nb: int) -> bool:
+    """The reference's leaf test: does one solve-only call at (n, k) fit
+    ``SOLVE_VMEM_BUDGET`` (n padded to ``nb``, k to 128)."""
+    np_ = -(-n // nb) * nb
+    kp = -(-k // 128) * 128
+    return 4 * (np_ * np_ + np_ * kp) <= SOLVE_VMEM_BUDGET
+
+
+def _solve_rec(A: torch.Tensor, B: torch.Tensor, nb: int,
+               leaf=None) -> torch.Tensor:
+    """Solve-only A^-1 B by recursive 2x2 block-Cholesky (Schur) splits
+    until each sub-solve passes ``_solve_fits`` (the reference's rule, its
+    search kept as it is: the LAST fitting leading block wins, and a
+    right-hand side too wide for any block is halved).  The leaves run
+    ``leaf`` (default K6, ``spd_multirhs_solve``); the Schur formation and
+    the back-substitution are batched matmuls."""
+    leaf = leaf or spd_multirhs_solve
+    P, n0, _ = A.shape
+    k0 = B.shape[-1]
+    if _solve_fits(n0, k0, nb):
+        return leaf(A, B)
+    n1 = 0                   # the test is not monotone in cand: last wins
+    for cand in range(nb, n0, nb):
+        if _solve_fits(cand, (n0 - cand) + k0, nb):
+            n1 = cand
+    if n1 == 0:
+        # RHS too wide even for the smallest block: split the RHS columns
+        half = -(-k0 // 256) * 128
+        return torch.cat([_solve_rec(A, B[:, :, :half], nb, leaf),
+                          _solve_rec(A, B[:, :, half:], nb, leaf)], dim=-1)
+    A11 = A[:, :n1, :n1]
+    A12 = A[:, :n1, n1:]
+    A22 = A[:, n1:, n1:]
+    U = _solve_rec(A11, torch.cat([A12, B[:, :n1, :]], dim=-1), nb, leaf)
+    n2 = n0 - n1
+    U_A = U[:, :, :n2]                       # A11^-1 A12
+    U_B = U[:, :, n2:]                       # A11^-1 B1
+    S = A22 - A12.mT @ U_A
+    Y = B[:, n1:, :] - A12.mT @ U_B
+    del U
+    X2 = _solve_rec(S, Y, nb, leaf)
+    del S, Y
+    X1 = U_B - U_A @ X2
+    return torch.cat([X1, X2], dim=1)
+
+
+def split_leaves(n0: int, k0: int, nb: int) -> list:
+    """The (n, k) of each leaf, in call order, that ``_solve_rec`` runs for
+    an (n0, n0) block and k0 right-hand sides: ``_solve_rec`` itself on
+    shape-only (meta) tensors, its leaf recording the shapes."""
+    leaves = []
+
+    def record(A, B):
+        leaves.append((A.shape[-1], B.shape[-1]))
+        return torch.empty_like(B)
+
+    _solve_rec(torch.empty((1, n0, n0), device="meta"),
+               torch.empty((1, n0, k0), device="meta"), nb, record)
+    return leaves
+
+
+def fused_spd_multirhs_split(A: torch.Tensor, B: torch.Tensor,
+                             nb: int = 128, leaf=None):
+    """K1's contract for patch blocks past the reference's leaf budget
+    (3D elasticity: n = 3 * 729 = 2187), by exact recursive 2x2
+    block-Cholesky (Schur) splits (``_solve_rec``; ``leaf`` default K6)
+    -> (X = A^-1 B, T = 0.5 (B^T X + (B^T X)^T)).  ``nb``
+    (``cfg.panel_nb``) drives the split rule; the leaf kernel's tile stays
+    64.  On the 3D elasticity chunk the leaves are (768, 1794),
+    (1152, 642) and (267, 375)."""
+    X = _solve_rec(A, B, nb, leaf)
+    T = B.mT @ X
+    return X, 0.5 * (T + T.mT)
 
 
 # ---------------------------------------------------------------------------
@@ -107,12 +226,28 @@ def gj_inverse(A: torch.Tensor) -> torch.Tensor:
     return M[:, :m0, :m0].contiguous()
 
 
-def spd_inverse_schur(M: torch.Tensor) -> torch.Tensor:
+def spd_inverse_schur(M: torch.Tensor, nb: int = GJ_PAD) -> torch.Tensor:
     """Batched SPD inverse (counterpart of ``spd_inverse_schur``): at
-    n <= 128 it is one K2 sweep; the blocked form for larger n is not
-    ported yet."""
-    if M.shape[-1] > GJ_PAD:
-        raise NotImplementedError(
-            "spd_inverse_schur for n > 128 (the blocked sweep of the "
-            "elasticity path) is not ported (ROADMAP.md Queue 1 item 9)")
-    return gj_inverse(M)
+    n <= 128 one K2 sweep; beyond, the blocked Gauss-Jordan sweep: M is
+    identity-extended to a multiple of ``nb`` and each nb x nb pivot block
+    is inverted by K2, the rank-nb row / column / corner updates by batched
+    matmuls in full precision (TF32 stays off; the reference pins HIGHEST
+    there, the updates cancel like the sweep's rank-1 updates)."""
+    B0, n0, _ = M.shape
+    if n0 <= nb:
+        return gj_inverse(M)
+    n = -(-n0 // nb) * nb
+    if n != n0:
+        M = _pad_spd(M, n)
+    for k0 in range(0, n, nb):
+        k1 = k0 + nb
+        Pi = gj_inverse(M[:, k0:k1, k0:k1])
+        colk = M[:, :, k0:k1]                              # (B, n, nb)
+        rowk = M[:, k0:k1, :]                              # (B, nb, n)
+        CPi = colk @ Pi
+        M2 = M - CPi @ rowk
+        M2[:, :, k0:k1] = CPi
+        M2[:, k0:k1, :] = Pi @ rowk
+        M2[:, k0:k1, k0:k1] = -Pi
+        M = M2
+    return -M[:, :n0, :n0]

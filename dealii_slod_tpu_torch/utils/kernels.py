@@ -34,16 +34,25 @@ LIB_NAME = "libslod_kernels.so"
 # entry point also takes the CUDA stream last and returns cudaGetLastError()
 _SIGNATURES = {
     "slod_fused_spd_multirhs": "ppppiii",
+    "slod_spd_multirhs_solve": "pppiii",
     "slod_gj_inverse": "pii",
-    "slod_stencil_trace": "pppiiiiip",
-    "slod_jacobi_rows": "pppiiiddd",
-    "slod_mgs_qr": "ppiii",
-    "slod_weig": "ppppiiiiddd",
+    "slod_stencil_trace": "pppiiiiiip",
+    "slod_jacobi_rows": "ppppiiiddd",
+    "slod_mgs_qr": "pppiii",
+    "slod_weig": "pppppiiiiddd",
+}
+# size queries (no stream; return a long long): global workspace elements
+# per matrix that a launch at these sizes needs, 0 where shared memory
+# holds the working set, -1 where no launch can take the sizes
+_QUERIES = {
+    "slod_mgs_qr_ws": "ii",
+    "slod_jacobi_rows_ws": "i",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 
 launches: Counter = Counter()
 _lib = None
+_ws_elems: dict = {}          # workspace(): the size queries' answers
 
 
 def reset_launch_counts() -> None:
@@ -126,6 +135,11 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, f"{base}_{suffix}")
                 fn.argtypes = [_CTYPES[c] for c in codes] + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+        for base, codes in _QUERIES.items():
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"{base}_{suffix}")
+                fn.argtypes = [_CTYPES[c] for c in codes]
+                fn.restype = ctypes.c_longlong
         lib.slod_error_string.argtypes = [ctypes.c_int]
         lib.slod_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -155,6 +169,27 @@ def check_cuda(name: str, *tensors: torch.Tensor,
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     suffix(tensors[0].dtype)
+
+
+def workspace(name: str, entry: str, dtype: torch.dtype,
+              device: torch.device, batch: int, *sizes):
+    """The global workspace a launch of ``entry`` at ``sizes`` takes on
+    ``device`` (the size rule is the C++ launcher's, ``{entry}_ws``, asked
+    once per entry, dtype, device and sizes): a (batch * elements,) tensor,
+    or None where shared memory holds the working set.  Raises where no
+    launch can take the sizes."""
+    key = (entry, dtype, device, sizes)
+    elems = _ws_elems.get(key)
+    if elems is None:
+        fn = getattr(library(), f"{entry}_ws_{suffix(dtype)}")
+        with torch.cuda.device(device):
+            elems = _ws_elems[key] = int(fn(*sizes))
+    if elems < 0:
+        raise RuntimeError(f"{name}: no launch takes sizes {sizes} in "
+                           f"{dtype} on {device}")
+    if elems == 0:
+        return None
+    return torch.empty((batch * elems,), dtype=dtype, device=device)
 
 
 def launch(name: str, entry: str, dtype: torch.dtype, device: torch.device,

@@ -51,18 +51,50 @@ def test_k2_matches_plain(cuda):
                patch_solve.gj_inverse_plain(A)) <= 1e-10
 
 
-def test_k3_matches_plain(cuda):
-    rng = np.random.default_rng(2)
-    dims = np.array([7, 7, 7])
+@pytest.mark.parametrize("n0, k0", [(300, 17), (700, 500)])
+def test_k6_matches_plain(cuda, n0, k0):
+    """The solve-only leaf, padded n and a wide right-hand side."""
+    rng = np.random.default_rng(n0)
+    A, B = spd(rng, 3, n0).to(cuda), torch.from_numpy(
+        rng.standard_normal((3, n0, k0))).to(cuda)
+    kernels.reset_launch_counts()
+    X = patch_solve.spd_multirhs_solve(A, B)
+    assert kernels.launches["K6 spd_multirhs_solve"] == 1
+    assert rel(X, patch_solve.spd_multirhs_solve_plain(A, B)) <= 1e-10
+
+
+def test_split_on_k6_leaves_matches_plain(cuda):
+    """The recursive Schur split at n = 1500 (two K6 leaves) against one
+    Cholesky solve, X and T."""
+    rng = np.random.default_rng(5)
+    A, B = spd(rng, 2, 1500).to(cuda), torch.from_numpy(
+        rng.standard_normal((2, 1500, 40))).to(cuda)
+    kernels.reset_launch_counts()
+    X, T = patch_solve.fused_spd_multirhs_split(A, B)
+    Xr, Tr = patch_solve.fused_spd_multirhs_plain(A, B)
+    assert kernels.launches["K6 spd_multirhs_solve"] == len(
+        patch_solve.split_leaves(1500, 40, 128)) == 2
+    assert rel(X, Xr) <= 1e-10 and rel(T, Tr) <= 1e-10
+
+
+@pytest.mark.parametrize("dim, C", [(3, 1), (2, 2), (3, 3)])
+def test_k3_k7_match_plain(cuda, dim, C):
+    """K3 (C = 1) and K7 (C = 2, 3) on a 7^dim canvas."""
+    rng = np.random.default_rng(2 + C)
+    dims = np.full(dim, 7)
     strides = np.concatenate([[1], np.cumprod(dims[:-1])])
     offs = tuple(int(o) for o in
-                 (cartesian_coords(np.full(3, 3)) - 1) @ strides)
+                 (cartesian_coords(np.full(dim, 3)) - 1) @ strides)
     shiftN, nN = int(strides.sum()), int(dims.prod())
-    band = torch.from_numpy(rng.standard_normal((3, nN, 27))).to(cuda)
+    band = torch.from_numpy(rng.standard_normal(
+        (3, nN, 3 ** dim * C * C))).to(cuda)
     Xp = torch.nn.functional.pad(
-        torch.from_numpy(rng.standard_normal((3, 1, nN, 20))),
+        torch.from_numpy(rng.standard_normal((3, C, nN, 20))),
         (0, 0, shiftN, shiftN)).to(cuda)
+    kernels.reset_launch_counts()
     S = assembly.stencil_trace(band, Xp, shiftN, offs)
+    assert kernels.launches["K3 stencil_trace" if C == 1
+                            else "K7 stencil_trace"] == 1
     assert rel(S, assembly.stencil_trace_plain(band, Xp, shiftN,
                                                offs)) <= 1e-12
 
@@ -92,6 +124,27 @@ def test_k4_matches_plain(cuda, k):
     Q = eig.mgs_qr(X.to(cuda)).cpu()
     assert rel(Q, eig.mgs_qr_plain(X)) <= 1e-10
     assert bool((Q[1, :, 4] == 0).all())
+
+
+def test_k4_k5_global_rows_match_plain(cuda):
+    """Float64 at the elasticity Gram size, n = 375, k = 374: the rows do
+    not fit in one CTA's shared memory, so K4 and K5 work in a global
+    workspace."""
+    rng = np.random.default_rng(374)
+    X = torch.from_numpy(rng.standard_normal((2, 375, 374))
+                         * np.logspace(0, -3, 374))
+    assert kernels.workspace("K4", "slod_mgs_qr", X.dtype, cuda, 2, 375,
+                             374).numel() == 2 * 375 * 374
+    assert kernels.workspace("K4", "slod_mgs_qr", X.dtype, cuda, 2, 375,
+                             32) is None            # fits: shared memory
+    assert rel(eig.mgs_qr(X.to(cuda)).cpu(), eig.mgs_qr_plain(X)) <= 1e-10
+    Q, _ = np.linalg.qr(rng.standard_normal((2, 374, 374)))
+    G = torch.from_numpy((Q * np.logspace(-3, 0, 374)) @ Q.transpose(0, 2, 1))
+    lam, V = eig.jacobi_eigh(G.to(cuda), sweeps=30)
+    lam_r, V_r = eig.jacobi_eigh(G, sweeps=30, block=1)
+    assert rel(lam.cpu(), lam_r) <= 1e-10
+    sgn = torch.sign((V.cpu() * V_r).sum(-2, keepdim=True))
+    assert float((V.cpu() * sgn - V_r).abs().max()) <= 1e-8
 
 
 @pytest.mark.parametrize("k, tol", [(8, 0.0), (32, 3e-6), (124, 3e-6)])
@@ -134,3 +187,28 @@ def test_small_step_gpu_matches_cpu(cuda, eig_solver):
     if eig_solver == "smallk":
         names.append("K4 mgs_qr")
     assert all(kernels.launches[k] > 0 for k in names)
+
+
+def test_small_elasticity_step_gpu_matches_cpu(cuda):
+    """3D refine-2 l=1 elasticity (C = 3) in f64 on the Schur-split route
+    with the smallk stage: CPU and GPU agree; K2, K4, K5, K6, K7 launched
+    (n = 375 > 128: the blocked T^-1 runs K2 on three pivots)."""
+    cfg = SLODConfig(dim=3, n_global_refinements=2, n_subdivisions=2,
+                     oversampling=1, lod_stabilization=True,
+                     constant_coefficients=False, coef_refinement=3,
+                     dtype="float64", patch_chunk=32, rhs="1; 1; 1",
+                     eig_solver="smallk", patch_solver="fused_split",
+                     smallk_tol=3e-6,
+                     coarse_solver=ReductionControl(200, 1e-12, 1e-12))
+    out = {}
+    kernels.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        s = pt.LODSolver(cfg, pt.ElasticityProblem(cfg), device=dev,
+                         verbose=False, eig_block=1)
+        s.assemble_fine_rhs()
+        s.build_step()(s.coef_q, s.fem_rhs)
+        out[str(dev)] = s.prolong_lod_solution().cpu()
+    assert rel(out["cuda"], out["cpu"]) <= 1e-8
+    assert all(kernels.launches[k] > 0 for k in (
+        "K2 gj_inverse", "K4 mgs_qr", "K5 jacobi_eigh",
+        "K6 spd_multirhs_solve", "K7 stencil_trace"))

@@ -1,6 +1,7 @@
 """The port's package boundary: it never loads jax or the JAX package,
 it runs on the card unless asked for the CPU and refuses a CUDA device that
-is not there, and it refuses every knob value it does not implement."""
+is not there, it resolves the "auto" knobs by the reference's rules, and it
+refuses every knob value it does not implement."""
 
 import os
 import subprocess
@@ -30,9 +31,10 @@ def tiny_cfg(**kw):
 
 
 def test_import_and_cpu_step_never_load_jax():
-    """In a fresh interpreter: import the port, run a tiny CPU step on the
-    Jacobi and on the smallk route, and find no jax module and no module
-    of the JAX package loaded."""
+    """In a fresh interpreter: import the port, run a tiny CPU diffusion
+    step on the Jacobi and on the smallk route and a tiny elasticity step
+    (C = 2, the Schur-split patch solver), and find no jax module and no
+    module of the JAX package loaded."""
     code = textwrap.dedent("""
         import sys
         import torch
@@ -53,6 +55,17 @@ def test_import_and_cpu_step_never_load_jax():
             assert s.spec_mode == eig_solver
             assert u.shape == (16, 1) and bool(torch.isfinite(u).all())
             assert float(u.abs().max()) > 0
+        cfg = pt.SLODConfig(dim=2, n_global_refinements=2, n_subdivisions=2,
+                            oversampling=1, lod_stabilization=True,
+                            constant_coefficients=False, coef_refinement=2,
+                            dtype="float64", patch_chunk=8, rhs="1; 1",
+                            eig_solver="smallk", patch_solver="fused_split")
+        s = pt.LODSolver(cfg, pt.ElasticityProblem(cfg), device="cpu",
+                         verbose=False)
+        s.assemble_fine_rhs()
+        u, A_st = s.build_step()(s.coef_q, s.fem_rhs)
+        assert u.shape == (16, 2) and A_st.shape[-2:] == (2, 2)
+        assert bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0
         loaded = sorted(m for m in sys.modules
                         if m in ("jax", "jaxlib", "dealii_slod_tpu")
                         or m.startswith(("jax.", "jaxlib.",
@@ -114,24 +127,54 @@ def test_auto_spectral_stage_resolution():
     assert spectral_mode(tiny_cfg(eig_solver="smallk"), cpu) == "smallk"
 
 
+def test_auto_patch_solver_resolution():
+    """``patch_solver="auto"`` applies the reference's size rule on any
+    device: 3D l=2 diffusion sits exactly at the fused kernel's 12 MiB
+    estimate ("fused"), 3D l=2 elasticity (n = 2187) takes the Schur split,
+    3D l=1 and 2D l=2 elasticity fit the fused estimate; a named solver is
+    taken as it is."""
+    from dealii_slod_tpu_torch.grid import GridSpec, ShapeClass
+    from dealii_slod_tpu_torch.models.lod import patch_solver_mode
+
+    def mode(dim, ell, C):
+        cfg = tiny_cfg(dim=dim, n_global_refinements=3, oversampling=ell,
+                       patch_solver="auto")
+        grid = GridSpec(dim, cfg.n_coarse, cfg.n_subdivisions, C)
+        return patch_solver_mode(cfg, C, ShapeClass((2 * ell + 1,) * dim,
+                                                    grid))
+
+    assert mode(3, 2, 1) == "fused"
+    assert mode(3, 2, 3) == "fused_split"
+    assert mode(3, 1, 3) == "fused"
+    assert mode(2, 2, 2) == "fused"
+    assert patch_solver_mode(tiny_cfg(patch_solver="fused_split"), 1,
+                             None) == "fused_split"
+
+
 class _Elasticity:
-    n_components = 2
+    n_components = 3           # C = 3 components in 2D
 
 
 @pytest.mark.parametrize("knobs", [
     dict(eig_solver="auto"),
     dict(eig_solver="lapack"), dict(eig_solver="lax"),
-    dict(patch_solver="panel"), dict(patch_solver="fused_split"),
+    dict(patch_solver="panel"),
     dict(patch_solver="lax"), dict(kernel_mode="classes"),
     dict(coarse_solve="direct"), dict(lod_stabilization=False),
     dict(trace_kernel="off"), dict(fused_nb=128),
     dict(assembly_mode="scatter"), dict(problem="elasticity"),
+    dict(problem="elasticity", patch_solver="fused_split", panel_nb=96),
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
 def test_unsupported_knobs_raise(knobs):
     knobs = dict(knobs)
     elastic = knobs.pop("problem", None) == "elasticity"
     cfg = tiny_cfg(**knobs)
-    problem = _Elasticity() if elastic else pt.DiffusionProblem(cfg)
+    if not elastic:
+        problem = pt.DiffusionProblem(cfg)
+    elif "panel_nb" in knobs:          # the split's rule block vs K6's tile
+        problem = pt.ElasticityProblem(cfg)
+    else:
+        problem = _Elasticity()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pt.LODSolver(cfg, problem, device="cpu", verbose=False)
 
@@ -151,3 +194,16 @@ def test_tpu_variant_knobs_warn_and_route_to_the_kernel():
     with pytest.warns(UserWarning, match="K1"):
         pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
                      verbose=False)
+
+
+@pytest.mark.parametrize("knobs, kernel", [
+    (dict(split_bs=2), "K6"), (dict(trace_impl="unrollslice"), "K7")])
+def test_elasticity_tpu_variant_knobs_warn(knobs, kernel):
+    """split_bs (the leaf's patch batching on the TPU) and the trace's
+    ``impl`` values are TPU variants of K6's and K7's contracts: accepted
+    with a warning that names the kernel that serves them."""
+    cfg = tiny_cfg(rhs="1; 1", patch_solver="fused_split", **knobs)
+    with pytest.warns(UserWarning, match=kernel):
+        s = pt.LODSolver(cfg, pt.ElasticityProblem(cfg), device="cpu",
+                         verbose=False)
+    assert s.solver_mode == "fused_split"

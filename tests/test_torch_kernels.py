@@ -78,6 +78,120 @@ def test_stencil_trace_matches_jax():
     assert rel(S, jS) <= 1e-12
 
 
+def _trace_inputs(rng, dim, C, B=2, k=20):
+    """band (B, nN, 3^dim C^2) flat and Xp (B, C, nNp, k) on a 7^dim
+    canvas, the shift and the flat offsets."""
+    dims = np.full(dim, 7)
+    strides = np.concatenate([[1], np.cumprod(dims[:-1])])
+    offs = tuple(int(o) for o in
+                 (cartesian_coords(np.full(dim, 3)) - 1) @ strides)
+    shiftN, nN = int(strides.sum()), int(dims.prod())
+    band = rng.standard_normal((B, nN, 3 ** dim * C * C))
+    X = rng.standard_normal((B, C, nN, k))
+    Xp = np.pad(X, ((0, 0), (0, 0), (shiftN, shiftN), (0, 0)))
+    return band, Xp, shiftN, offs
+
+
+@pytest.mark.parametrize("impl", ["unrollslice", "slice"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_stencil_trace_c_generic_matches_jax(dim, impl):
+    """K7's contract at C = dim (2D: 9 offsets, 3D: 27), S (B, C, nN, k),
+    against JAX's unrolled kernel and its offset-grid kernel in interpret
+    mode, to 1e-12."""
+    band, Xp, shiftN, offs = _trace_inputs(np.random.default_rng(dim), dim,
+                                           dim)
+    jS = jax_assembly.stencil_trace_pallas(jnp.asarray(band),
+                                           jnp.asarray(Xp), shiftN, offs,
+                                           interpret=True, impl=impl)
+    S = assembly.stencil_trace(torch.from_numpy(band), torch.from_numpy(Xp),
+                               shiftN, offs)
+    assert S.shape == jS.shape == (2, dim, 7 ** dim, 20)
+    assert rel(S, jS) <= 1e-12
+
+
+def test_spd_multirhs_solve_matches_jax():
+    """K6's contract X = A^-1 B (JAX's interpret mode solves with LAPACK),
+    at (3, 300, 17), to 1e-10."""
+    rng = np.random.default_rng(12)
+    A, B = spd(rng, 3, 300), rng.standard_normal((3, 300, 17))
+    jX = jax_ps.spd_multirhs_solve_dma(jnp.asarray(A), jnp.asarray(B),
+                                       interpret=True)
+    X = patch_solve.spd_multirhs_solve(torch.from_numpy(A),
+                                       torch.from_numpy(B))
+    assert rel(X, jX) <= 1e-10
+
+
+def _record_leaves(monkeypatch) -> list:
+    """Wrap the port's leaf solve to record each leaf's (n, k)."""
+    leaves, leaf = [], patch_solve.spd_multirhs_solve
+
+    def record(A, B):
+        leaves.append((A.shape[-1], B.shape[-1]))
+        return leaf(A, B)
+
+    monkeypatch.setattr(patch_solve, "spd_multirhs_solve", record)
+    return leaves
+
+
+def test_fused_spd_multirhs_split_matches_jax(monkeypatch):
+    """The recursive 2x2 Schur split at P = 2, n = 1500, k = 40, where the
+    reference's leaf budget recurses: X and T to 1e-10, and the same
+    leaves as JAX's (its leaf kernel wrapped to record the shapes)."""
+    rng = np.random.default_rng(13)
+    A, B = spd(rng, 2, 1500), rng.standard_normal((2, 1500, 40))
+    jX, jT = jax_ps.fused_spd_multirhs_split(jnp.asarray(A), jnp.asarray(B),
+                                             nb=128)
+    jleaves = []
+    leaf = jax_ps.spd_multirhs_solve_dma
+
+    def record(A, B, **kw):
+        jleaves.append((A.shape[-1], B.shape[-1]))
+        return leaf(A, B, **kw)
+
+    monkeypatch.setattr(jax_ps, "spd_multirhs_solve_dma", record)
+    jax_ps._solve_rec(jnp.asarray(A), jnp.asarray(B), 128)
+    leaves = _record_leaves(monkeypatch)
+    X, T = patch_solve.fused_spd_multirhs_split(
+        torch.from_numpy(A), torch.from_numpy(B), nb=128)
+    assert rel(X, jX) <= 1e-10
+    assert rel(T, jT) <= 1e-10
+    assert leaves == jleaves == [(1408, 132), (92, 40)]
+    assert patch_solve.split_leaves(1500, 40, 128) == leaves
+
+
+@pytest.mark.parametrize("n, k, expect", [
+    (2187, 375, [(768, 1794), (1152, 642), (267, 375)]),   # 3D elasticity
+    (100, 20000, [(100, 10112), (100, 9888)]),             # RHS halved
+])
+def test_split_leaves_rule_matches_jax(monkeypatch, n, k, expect):
+    """``split_leaves`` (the rule alone) gives the leaves that JAX's
+    recursion and the port's run, in order (identity A, one patch; JAX's
+    leaf replaced by a recorder)."""
+    jleaves = []
+
+    def record(A, B, **kw):
+        jleaves.append((A.shape[-1], B.shape[-1]))
+        return jnp.zeros(B.shape, B.dtype)
+
+    monkeypatch.setattr(jax_ps, "spd_multirhs_solve_dma", record)
+    jax_ps._solve_rec(jnp.eye(n)[None], jnp.zeros((1, n, k)), 128)
+    leaves = _record_leaves(monkeypatch)
+    patch_solve._solve_rec(torch.eye(n, dtype=torch.float64)[None],
+                           torch.zeros((1, n, k), dtype=torch.float64), 128)
+    assert patch_solve.split_leaves(n, k, 128) == leaves == jleaves == expect
+
+
+@pytest.mark.parametrize("n", [375, 200])
+def test_blocked_spd_inverse_schur_matches_jax(n):
+    """The blocked Gauss-Jordan sweep for n > 128 (K2 on each 128-pivot,
+    rank-128 updates), at (4, n), to 1e-10 relative."""
+    A = spd(np.random.default_rng(n), 4, n)
+    jinv = jax_ps.spd_inverse_schur(jnp.asarray(A))
+    inv = patch_solve.spd_inverse_schur(torch.from_numpy(A))
+    assert rel(inv, jinv) <= 1e-10
+    assert rel(inv, np.linalg.inv(A)) <= 1e-10
+
+
 def _psd(rng, B, n):
     Q, _ = np.linalg.qr(rng.standard_normal((B, n, n)))
     lam = np.logspace(-3, 0, n)
@@ -250,7 +364,7 @@ def _real_grams():
     sel = torch.tensor([0, 9, 73, 146, 219, 292])
     cw = basis.coef_windows(cfg, s.grid, s.coef_q["alpha"])[sel]
     nlo, nhi, sides = nlo[sel], nhi[sel], sides[sel]
-    band, A, PT_m, cvd = basis.prep(tab, cw, nlo, nhi)
+    band, A, PT_m, cvd = basis.prep(tab, {"alpha": cw}, nlo, nhi)
     X, T_raw = patch_solve.fused_spd_multirhs(A, PT_m)
     Tinv = patch_solve.spd_inverse_schur(T_raw / tab.Hdim
                                          + torch.diag_embed(1.0 - cvd))
