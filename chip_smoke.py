@@ -18,15 +18,21 @@ Phases (each prints its numbers; any failure exits non-zero):
    block.  Each is timed with CUDA events beside its plain version, one
    PyTorch library call computing the same function where there is one,
    and its bound (the larger of FLOPs at 67 TFLOP/s and bytes at
-   3.35 TB/s, the H100 SXM's float32 and HBM peaks);
+   3.35 TB/s, the H100 SXM's float32 and HBM peaks); K1 and K6, which
+   multiply on the tensor cores, also get that bound with the FLOPs at the
+   165 TFLOP/s of a 3xTF32 product, K1 is held against the plain blocked
+   version that sums in the kernel's order, and its float32 gate is read
+   on every chunk of the configuration, not only on the first;
 4. el-kernels: the same checks on the middle 128-patch chunk of the 3D
    elasticity configuration (real operators, C = 3): K6 at each leaf of
    the Schur split, K7 on the real band and X, K2 on a real 128-pivot of
    T and of G + delta I, K4 / K5 at the float32 path's shapes (all 384
-   Grams of the chunk, k = 32), and K4 / K5 at the float64 path's Gram
+   Grams of the chunk, k = 32; K6's float32 gate on the leaves of every
+   chunk of the configuration), and K4 / K5 at the float64 path's Gram
    size (n = 375, k = 374: the global-memory rows, held in float64 only,
-   the one dtype that runs them); K1 on the whole 2187 block is timed
-   beside the split, for the record;
+   the one dtype that runs them; K5 and ``torch.linalg.eigh`` are also
+   timed on all 384 Grams); K1 on the whole 2187 block is timed beside
+   the split, for the record;
 5. e2e-f64: small steps in float64 on the CPU (plain versions) and on the
    card (kernels): 3D refine-2 l=1 diffusion on the Jacobi and on the
    smallk route, and 3D refine-2 l=1 elasticity on the Schur split; u and
@@ -70,6 +76,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "el-kernels", "e2e-f64", "jacobi",
           "main", "weig", "elasticity")
 PEAK_FLOPS = 67e12          # H100 SXM float32, outside the tensor cores
+PEAK_FLOPS_3XTF32 = 165e12  # H100 SXM TF32 tensor cores, 495e12 / 3 products
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 # kernel -> (source, replaced Pallas call, path whose run counts it)
 SOURCE = {
@@ -318,10 +325,10 @@ def qr_contract_err(Q, X):
     return max(orth, span)
 
 
-def by(flops, nbytes):
+def by(flops, nbytes, peak=PEAK_FLOPS):
     """The bound (ms, what bounds it) of work of ``flops`` operations
     moving ``nbytes`` bytes."""
-    t_f, t_b = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_f, t_b = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
 
 
@@ -395,6 +402,66 @@ def check_case(table, card, name, shape, make, kern, plain, err, bound, lib,
                       bound_by=bound_by, library_ms=library_ms))
 
 
+def tensor_core_bound(row, card, flops, nbytes):
+    """K1 / K6 multiply on the tensor cores: beside the bound every row
+    has (FLOPs at the CUDA cores' 67 TFLOP/s), the same work's bound with
+    the FLOPs at the 165 TFLOP/s of a 3xTF32 product, put into the row
+    just added."""
+    ms, what = by(flops, nbytes, PEAK_FLOPS_3XTF32)
+    row["bound_ms_3xtf32"] = ms
+    print(f"[kernels] {row['name']}: bound at 165 TFLOP/s (3xTF32) "
+          f"{ms:.4f} ms ({what}; {100 * ms / row['ms']:.2f}% of it) [{card}]")
+
+
+def f32_gate_all_chunks(s, tab, name, chunk=128):
+    """The float32 gate of ``check_case`` (error against the float64 plain
+    version <= 4x the float32 plain version's + 1e-6) on the real
+    operators of every chunk of the configuration: K1's X and T, or, on
+    the elasticity configuration, K6's X at every leaf of the Schur split.
+    Prints the worst error-to-gate ratio; fails where one exceeds 1."""
+    import torch
+    from dealii_slod_tpu_torch.models import basis
+    from dealii_slod_tpu_torch.ops import patch_solve
+    split = s.solver_mode == "fused_split"
+    full = {k: basis.coef_windows(s.cfg, s.grid, s.coef_q[k])
+            for k in tab.coef_names}
+    _, nlo, nhi, _ = s._uniform_inputs()
+    worst, n_cases = (0.0, None, 0.0, 0.0), 0
+    for p0 in range(0, s.topo.n_patches, chunk):
+        sel = slice(p0, p0 + chunk)
+        _, A, PT_m, _ = basis.prep(
+            tab, {k: v[sel] for k, v in full.items()},
+            torch.as_tensor(nlo[sel], device="cuda"),
+            torch.as_tensor(nhi[sel], device="cuda"))
+        ops = (split_leaf_operands(A, PT_m, tab.panel_nb)[1] if split
+               else [(A, PT_m)])
+        del A, PT_m
+        for i, (a, b) in enumerate(ops):
+            a32, b32 = a.float(), b.float()
+            if split:
+                ref = patch_solve.spd_multirhs_solve_plain(a, b)
+                e = rel(patch_solve.spd_multirhs_solve(a32, b32), ref)
+                base = rel(patch_solve.spd_multirhs_solve_plain(a32, b32),
+                           ref)
+            else:
+                ref = patch_solve.fused_spd_multirhs_plain(a, b)
+                out = patch_solve.fused_spd_multirhs(a32, b32)
+                pl = patch_solve.fused_spd_multirhs_plain(a32, b32)
+                e = max(rel(o, r) for o, r in zip(out, ref))
+                base = max(rel(o, r) for o, r in zip(pl, ref))
+            gate = 4 * base + 1e-6
+            n_cases += 1
+            if e / gate >= worst[0]:
+                worst = (e / gate, f"patches {p0}.., leaf {i + 1}"
+                         if split else f"patches {p0}..", e, gate)
+        del ops
+    print(f"[kernels] {name}: float32 gate on every chunk ({n_cases} "
+          f"solves): worst error / gate {worst[0]:.4f} at {worst[1]} "
+          f"(err {worst[2]:.3e}, gate {worst[3]:.3e})")
+    check(worst[0] <= 1.0, f"{name}: float32 error over the gate at "
+          f"{worst[1]}")
+
+
 def phase_kernels(card):
     """Each kernel against its plain version at the main-path shapes."""
     import numpy as np
@@ -457,6 +524,8 @@ def phase_kernels(card):
 
     f4 = 4  # bytes of a float32 (the timed dtype)
     n, kk = A.shape[-1], PT_m.shape[-1]
+    k1_work = (B * (n ** 3 / 3 + 2 * n * n * kk + 2 * n * kk * kk),
+               B * f4 * (n * n + 2 * n * kk + kk * kk))
     nN, n_off = band.shape[1], band.shape[2]
     nNp = Xp.shape[2]
     m126 = cD + cD % 2
@@ -469,8 +538,7 @@ def phase_kernels(card):
             patch_solve.fused_spd_multirhs,
             patch_solve.fused_spd_multirhs_plain,
             lambda o, r: max(rel(o[0], r[0]), rel(o[1], r[1])),
-            lambda a: by(B * (n ** 3 / 3 + 2 * n * n * kk + 2 * n * kk * kk),
-                         B * f4 * (n * n + 2 * n * kk + kk * kk)),
+            lambda a: by(*k1_work),
             None),
         "K2 gj_inverse": (
             f"T ({B}, {cD}, {cD})",
@@ -543,6 +611,18 @@ def phase_kernels(card):
                    else None,
                    contract=(lambda q, a: qr_contract_err(q, a[0]))
                    if name == "K4 mgs_qr" else None)
+        if name == "K1 fused_spd_multirhs":
+            tensor_core_bound(table[-1], card, *k1_work)
+            f32_gate_all_chunks(s, tab, name)
+            # the kernel's order of summation on tensors: a wrong panel
+            # would show here as well as against the Cholesky solve
+            Xb, Tb = patch_solve.fused_ldl_blocked_plain(A, PT_m)
+            Xk, Tk = kern(A, PT_m)
+            e_b = max(rel(Xk, Xb), rel(Tk, Tb))
+            print(f"[kernels] {name} against the blocked left-looking "
+                  f"plain version, f64: {e_b:.3e} (<= 1e-10)")
+            check(e_b <= 1e-10, f"{name} disagrees with the blocked plain "
+                  "version")
     return table
 
 
@@ -597,9 +677,9 @@ def phase_el_kernels(card):
     f4, f8 = 4, 8
     table = []
 
-    def k6_bound(n, k):
-        return lambda a: by(B * (n ** 3 / 3 + 2 * n * n * k),
-                            B * f4 * (n * n + 2 * n * k))
+    def k6_work(n, k):
+        return (B * (n ** 3 / 3 + 2 * n * n * k),
+                B * f4 * (n * n + 2 * n * k))
 
     for i, (a, b) in enumerate(leaves):
         n, k = a.shape[-1], b.shape[-1]
@@ -608,9 +688,12 @@ def phase_el_kernels(card):
             f"A ({B}, {n}, {n}), B ({B}, {n}, {k})",
             lambda dt, a=a, b=b: (a.to(dt), b.to(dt)),
             patch_solve.spd_multirhs_solve,
-            patch_solve.spd_multirhs_solve_plain, rel, k6_bound(n, k),
+            patch_solve.spd_multirhs_solve_plain, rel,
+            lambda a_, n=n, k=k: by(*k6_work(n, k)),
             lambda a, b: torch.linalg.solve(a, b))
+        tensor_core_bound(table[-1], card, *k6_work(n, k))
     del leaves
+    f32_gate_all_chunks(s, tab, "K6 spd_multirhs_solve")
     check_case(
         table, card, "K7 stencil_trace",
         f"band ({B}, {nN}, {band.shape[2]}), X ({B}, {C}, {nNp}, {kk})",
@@ -753,9 +836,12 @@ def phase_el_kernels(card):
         lambda w: torch.linalg.eigh(w), path="elasticity-r3-f64",
         time_dtype="float64", f32=False)
     ms_all = cuda_ms(lambda: k5(W_all, True), 1)
+    lib_all = cuda_ms(lambda: torch.linalg.eigh(W_all), 1)
     table[-1]["ms_full_batch"] = ms_all
+    table[-1]["library_ms_full_batch"] = lib_all
     print(f"[kernels] K5 jacobi_eigh [global rows] on all {BC} W of the "
-          f"chunk, f64: {ms_all:.3f} ms [{card}]")
+          f"chunk, f64: {ms_all:.3f} ms, library (linalg.eigh) "
+          f"{lib_all:.3f} ms [{card}]")
     return table
 
 
@@ -1006,7 +1092,8 @@ def main():
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",
                              "bound_ms", "bound_by", "library_ms", "shape",
-                             "dtype", "launches_by_path", "ms_full_batch")
+                             "dtype", "launches_by_path", "ms_full_batch",
+                             "library_ms_full_batch", "bound_ms_3xtf32")
          if k in row}
         for row in table]}))
     print(json.dumps({"ok": True, "device": {

@@ -29,10 +29,13 @@ def _pad_spd(A: torch.Tensor, n: int) -> torch.Tensor:
     padded coordinates stay decoupled, so the leading block is solved or
     inverted exactly)."""
     B, n0, _ = A.shape
-    Ap = A.new_zeros((B, n, n))
+    Ap = A.new_empty((B, n, n))
     Ap[:, :n0, :n0] = A
-    idx = torch.arange(n0, n, device=A.device)
-    Ap[:, idx, idx] = 1.0
+    if n > n0:
+        Ap[:, n0:, :] = 0.0
+        Ap[:, :n0, n0:] = 0.0
+        idx = torch.arange(n0, n, device=A.device)
+        Ap[:, idx, idx] = 1.0
     return Ap
 
 
@@ -50,8 +53,10 @@ def fused_spd_multirhs_plain(A: torch.Tensor, B: torch.Tensor):
 def _ldl_operands(name: str, A: torch.Tensor, B: torch.Tensor):
     """K1's and K6's operands on CUDA: n and k padded to multiples of 64
     (unit diagonal on padded rows, zero right-hand sides), the scratch
-    copy of A that the kernel factors in place, X holding B (B -> z -> w
-    -> X in place) and the per-patch workspace NB (NB + k + n)."""
+    copy of A that the kernel factors in place, X holding B (B -> z -> X
+    in place) and the per-patch workspace, whose size is the C++
+    launcher's rule (``slod_{name}_ws``: D_j^-1, one 128-row block of
+    right-hand sides and, with the triple product, w)."""
     P, n0, _ = A.shape
     k0 = B.shape[-1]
     if B.shape[:2] != (P, n0) or A.shape[2] != n0:
@@ -61,11 +66,69 @@ def _ldl_operands(name: str, A: torch.Tensor, B: torch.Tensor):
     kernels.check_cuda(name, A, B, contiguous=False)
     n = -(-n0 // NB) * NB
     k = -(-k0 // NB) * NB
-    X = B.new_zeros((P, n, k))
+    X = B.new_empty((P, n, k))
     X[:, :n0, :k0] = B
-    work = torch.empty((P, NB * (NB + k + n)), dtype=A.dtype,
-                       device=A.device)
+    if n > n0:
+        X[:, n0:, :] = 0.0
+    if k > k0:
+        X[:, :n0, k0:] = 0.0
+    work = kernels.workspace(name, f"slod_{name}", A.dtype, A.device, P, n, k)
     return _pad_spd(A, n), X, work
+
+
+def fused_ldl_blocked_plain(A: torch.Tensor, B: torch.Tensor,
+                            with_T: bool = True, matmul=None):
+    """The arithmetic of K1 / K6 on tensors, in the kernels' order of
+    summation: the left-looking block LDL^T (64 x 64 diagonal blocks
+    inverted by the sweep, the upper block triangle holding
+    U = (L D)^T), the substitutions by block rows of 128 and T = z^T w as
+    one product.  Every product goes through ``matmul`` (default
+    ``torch.matmul``), so a test can put an emulated product in its place.
+    Only tests and ``chip_smoke.py`` call it, to localise a wrong panel.
+    -> (X, T), or X where ``with_T`` is False."""
+    mm = matmul or torch.matmul
+    P, n0, _ = A.shape
+    n = -(-n0 // NB) * NB
+    A = _pad_spd(A, n)
+    X = B.new_zeros((P, n, B.shape[-1]))
+    X[:, :n0] = B
+    Dinv = []
+    for j0 in range(0, n, NB):
+        j1 = j0 + NB
+        if j0 == 0:
+            A[:, :NB, NB:] = A[:, NB:, :NB].mT
+        else:
+            col = A[:, j0:, j0:j1] - mm(A[:, j0:, :j0], A[:, :j0, j0:j1])
+            A[:, j0:, j0:j1] = col
+            A[:, j0:j1, j1:] = col[:, NB:].mT
+        Dinv.append(gj_inverse_plain(A[:, j0:j1, j0:j1]))
+        if j1 < n:
+            A[:, j1:, j0:j1] = mm(A[:, j1:, j0:j1], Dinv[-1])
+    W = torch.empty_like(X) if with_T else None
+    for r0 in range(0, n, 2 * NB):
+        r1, r2 = r0 + NB, min(r0 + 2 * NB, n)
+        if r0 > 0:
+            X[:, r0:r2] = X[:, r0:r2] - mm(A[:, r0:r2, :r0], X[:, :r0])
+        if r2 > r1:
+            X[:, r1:r2] = X[:, r1:r2] - mm(A[:, r1:r2, r0:r1], X[:, r0:r1])
+        if with_T:
+            for b0 in range(r0, r2, NB):
+                W[:, b0:b0 + NB] = mm(Dinv[b0 // NB], X[:, b0:b0 + NB])
+    T = mm(X.mT, W) if with_T else None
+    hi = n
+    while hi > 0:
+        r0 = hi - (NB if hi < 2 * NB else 2 * NB)
+        r1 = r0 + NB
+        y = X[:, r0:hi]
+        if hi < n:
+            y = y - mm(A[:, r0:hi, hi:], X[:, hi:])
+        if hi > r1:
+            X[:, r1:hi] = mm(Dinv[r1 // NB], y[:, NB:])
+            y = y[:, :NB] - mm(A[:, r0:r1, r1:hi], X[:, r1:hi])
+        X[:, r0:r1] = mm(Dinv[r0 // NB], y)
+        hi = r0
+    X = X[:, :n0]
+    return (X, T) if with_T else X
 
 
 def fused_spd_multirhs(A: torch.Tensor, B: torch.Tensor):

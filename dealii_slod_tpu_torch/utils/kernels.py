@@ -45,6 +45,8 @@ _SIGNATURES = {
 # per matrix that a launch at these sizes needs, 0 where shared memory
 # holds the working set, -1 where no launch can take the sizes
 _QUERIES = {
+    "slod_fused_spd_multirhs_ws": "ii",
+    "slod_spd_multirhs_solve_ws": "ii",
     "slod_mgs_qr_ws": "ii",
     "slod_jacobi_rows_ws": "i",
 }

@@ -63,6 +63,47 @@ def test_k6_matches_plain(cuda, n0, k0):
     assert rel(X, patch_solve.spd_multirhs_solve_plain(A, B)) <= 1e-10
 
 
+def _spd_on(device, seed, P, n, k):
+    """SPD blocks and right-hand sides made on the device from a seed, in
+    float64."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    M = torch.randn((P, n, n), generator=gen, device=device,
+                    dtype=torch.float64)
+    A = M @ M.mT / n + torch.eye(n, device=device, dtype=torch.float64)
+    return A, torch.randn((P, n, k), generator=gen, device=device,
+                          dtype=torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k0", [3, 125, 375, 642])
+@pytest.mark.parametrize("n0", [64, 125, 267, 729, 1152])
+def test_k1_k6_shapes_match_plain(cuda, n0, k0, dtype):
+    """K1 and K6 over batch sizes below, at and above one CTA per SM, padded
+    and unpadded n and k, one to eighteen panels.  float64 within 1e-10 of
+    the plain version; float32 against the float64 plain version within 4x
+    the float32 plain version's own error + 1e-6 (the summation order
+    differs, the arithmetic does not)."""
+    for P in (1, 3, 128, 200):
+        A, B = _spd_on(cuda, 1000 * n0 + k0 + P, P, n0, k0)
+        Xr, Tr = patch_solve.fused_spd_multirhs_plain(A, B)
+        a, b = A.to(dtype), B.to(dtype)
+        kernels.reset_launch_counts()
+        X, T = patch_solve.fused_spd_multirhs(a, b)
+        X6 = patch_solve.spd_multirhs_solve(a, b)
+        assert kernels.launches["K1 fused_spd_multirhs"] == 1
+        assert kernels.launches["K6 spd_multirhs_solve"] == 1
+        assert X.shape == X6.shape == Xr.shape and T.shape == Tr.shape
+        errs = (rel(X.double(), Xr), rel(T.double(), Tr),
+                rel(X6.double(), Xr))
+        if dtype == torch.float64:
+            bounds = (1e-10,) * 3
+        else:
+            Xp, Tp = patch_solve.fused_spd_multirhs_plain(a, b)
+            bx = 4 * rel(Xp.double(), Xr) + 1e-6
+            bounds = (bx, 4 * rel(Tp.double(), Tr) + 1e-6, bx)
+        assert all(e <= b_ for e, b_ in zip(errs, bounds)), (P, errs, bounds)
+
+
 def test_split_on_k6_leaves_matches_plain(cuda):
     """The recursive Schur split at n = 1500 (two K6 leaves) against one
     Cholesky solve, X and T."""

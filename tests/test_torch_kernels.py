@@ -47,6 +47,101 @@ def test_fused_spd_multirhs_matches_jax(n0):
     assert rel(T, jT) <= 1e-10
 
 
+@pytest.mark.parametrize("with_T", [True, False])
+@pytest.mark.parametrize("n0", [100, 250, 150])
+def test_fused_ldl_blocked_plain_matches_jax(n0, with_T):
+    """The CUDA kernel's order of summation on tensors (left-looking block
+    LDL^T, substitutions by 128-row block rows, T = z^T w as one product):
+    against the Cholesky plain version and against JAX's K1 (solve-only:
+    JAX's K6 leaf), in float64 to 1e-10.  n0 = 150 is no multiple of the
+    panel and spans three panels."""
+    rng = np.random.default_rng(n0)
+    A, B = spd(rng, 6, n0), rng.standard_normal((6, n0, 60))
+    tA, tB = torch.from_numpy(A), torch.from_numpy(B)
+    Xp, Tp = patch_solve.fused_spd_multirhs_plain(tA, tB)
+    out = patch_solve.fused_ldl_blocked_plain(tA, tB, with_T=with_T)
+    if with_T:
+        jX, jT = jax_ps.fused_spd_multirhs(jnp.asarray(A), jnp.asarray(B),
+                                           nb=64, bs=4, interpret=True)
+        X, T = out
+        assert T.shape == (6, 60, 60)
+        assert rel(T, Tp) <= 1e-10 and rel(T, jT) <= 1e-10
+    else:
+        jX = jax_ps.spd_multirhs_solve_dma(jnp.asarray(A), jnp.asarray(B),
+                                           interpret=True)
+        X = out
+    assert X.shape == (6, n0, 60)
+    assert rel(X, Xp) <= 1e-10 and rel(X, jX) <= 1e-10
+
+
+def _tf32(x):
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_drop(x):
+    """float32 -> TF32 by dropping the low 13 mantissa bits, as the tensor
+    core reads an operand that was not rounded first."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The kernels' float32 product on the tensor cores, emulated: a = a_hi
+    + a_lo (a_hi rounded to TF32, the remainder's low bits dropped), b
+    likewise, three TF32 products with float32 accumulation, the low-order
+    terms first."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_drop(a - ah), _tf32_drop(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _real_patch_operators():
+    """SPD patch blocks A (8, 729, 729) and right-hand sides PT of eight
+    patches of the small 3D refine-2 l=2 configuration (coef_refinement 3,
+    seed 3), assembled by the port's CPU pipeline, in float64."""
+    import dealii_slod_tpu_torch as pt
+    from dealii_slod_tpu_torch.models import basis
+    cfg = pt.SLODConfig(dim=3, n_global_refinements=2, n_subdivisions=2,
+                        oversampling=2, lod_stabilization=True,
+                        constant_coefficients=False, coef_seed=3,
+                        coef_refinement=3, dtype="float64",
+                        eig_solver="smallk", patch_solver="fused")
+    s = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
+                     verbose=False)
+    tab = s._uniform_tables()
+    _, nlo, nhi, _ = s._uniform_inputs_t()
+    sel = torch.arange(0, 64, 8) + torch.arange(8) % 4
+    cw = basis.coef_windows(cfg, s.grid, s.coef_q["alpha"])[sel]
+    _, A, PT_m, _ = basis.prep(tab, {"alpha": cw}, nlo[sel], nhi[sel])
+    return A, PT_m
+
+
+def test_3xtf32_split_keeps_f32_accuracy_single_pass_does_not():
+    """Why K1 / K6 split their float32 operands: through the blocked
+    version on real patch operators, the 3xTF32 product keeps X within the
+    gate the card check applies (error against float64 <= 4x the plain
+    float32 version's + 1e-6), and a single TF32 pass does not (the Schur
+    updates cancel)."""
+    A, B = _real_patch_operators()
+    assert A.shape[-1] >= 3 * patch_solve.NB
+    Xr, Tr = patch_solve.fused_spd_multirhs_plain(A, B)
+    a, b = A.float(), B.float()
+    Xp, Tp = patch_solve.fused_spd_multirhs_plain(a, b)
+    gate_x = 4 * rel(Xp.double(), Xr) + 1e-6
+    gate_t = 4 * rel(Tp.double(), Tr) + 1e-6
+    X3, T3 = patch_solve.fused_ldl_blocked_plain(a, b, matmul=_mm_3xtf32)
+    assert rel(X3.double(), Xr) <= gate_x
+    assert rel(T3.double(), Tr) <= gate_t
+    X1, _ = patch_solve.fused_ldl_blocked_plain(a, b, matmul=_mm_1xtf32)
+    assert rel(X1.double(), Xr) > gate_x
+
+
 def test_gj_inverse_matches_jax():
     """K2: the Gauss-Jordan sweep inverse (JAX pads 125 -> 128), 1e-10."""
     rng = np.random.default_rng(1)
