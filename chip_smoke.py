@@ -3,31 +3,44 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --phases device,build,kernels --root DIR
+        # DIR (inside this checkout) holds another commit's package, for
+        # example the parent's from ``git archive``: the same phases and
+        # timing code on its kernels, so two commits compare like for like
 
 Phases (each prints its numbers; any failure exits non-zero):
 
 1. device: torch's device name and nvidia-smi's name / power limit;
 2. build: nvcc builds ``dealii_slod_tpu_torch/csrc`` (timed);
-3. kernels: K1, K2, K3, K4, K5 (on the smallk W and on the Jacobi route's
-   factor rows) and K8 against their plain PyTorch versions on the first
-   128-patch chunk of the main-path configuration (real assembled
-   operators and Grams), in float64 (relative max error <= 1e-10) and
-   float32 (error against the f64 plain version <= 4x the f32 plain
-   version's own error + 1e-6); K4 on the real subspace iterate is held to
-   its contract (orthonormality, span), elementwise on a well-conditioned
-   block.  Each is timed with CUDA events beside its plain version, one
-   PyTorch library call computing the same function where there is one,
-   and its bound (the larger of FLOPs at 67 TFLOP/s and bytes at
-   3.35 TB/s, the H100 SXM's float32 and HBM peaks); K1 and K6, which
-   multiply on the tensor cores, also get that bound with the FLOPs at the
-   165 TFLOP/s of a 3xTF32 product, K1 is held against the plain blocked
-   version that sums in the kernel's order, and its float32 gate is read
-   on every chunk of the configuration, not only on the first;
+3. kernels: K1, K2, K3, K4, K5 (on the smallk W, the warp-per-matrix
+   routine, and on the Jacobi route's factor rows, the CTA routine) and
+   K8 against their plain PyTorch versions on the first 128-patch chunk
+   of the main-path configuration (real assembled operators and Grams),
+   in float64 (relative max error <= 1e-10) and float32 (error against
+   the f64 plain version <= 4x the f32 plain version's own error + 1e-6);
+   K4 on the real subspace iterate is held to its contract
+   (orthonormality, span), elementwise on a well-conditioned block.  Each
+   is timed with CUDA events beside its plain version, one PyTorch
+   library call computing the same function where there is one, and its
+   bound (the larger of FLOPs at 67 TFLOP/s and bytes at 3.35 TB/s, the
+   H100 SXM's float32 and HBM peaks); K1 and K6, which multiply on the
+   tensor cores, also get that bound with the FLOPs at the 165 TFLOP/s of
+   a 3xTF32 product, K1 is held against the plain blocked version that
+   sums in the kernel's order, and its float32 gate is read on every
+   chunk of the configuration, not only on the first.  Each row also
+   gives the kernel's device time (the calls queued behind a spin kernel,
+   so the host's issue time drops out).  A K5 / K8 row times the wrapper's
+   function, sorted and normalized eigenpairs (the kernels now do that
+   themselves), and K5 rows also the rows launch alone (``kernel_ms``);
+   every K5 row prints the sweeps each matrix ran in the kernel beside the
+   plain version's per-matrix count, in both dtypes, so a changed stopping
+   rule shows;
 4. el-kernels: the same checks on the middle 128-patch chunk of the 3D
    elasticity configuration (real operators, C = 3): K6 at each leaf of
-   the Schur split, K7 on the real band and X, K2 on a real 128-pivot of
-   T and of G + delta I, K4 / K5 at the float32 path's shapes (all 384
-   Grams of the chunk, k = 32; K6's float32 gate on the leaves of every
+   the Schur split, K7 on the real band and X, K2 (the register-tiled
+   sweep) on a real 128-pivot of T and of G + delta I, K4 / K5 at the
+   float32 path's shapes (all 384 Grams of the chunk, k = 32: K5's
+   warp-per-matrix routine; K6's float32 gate on the leaves of every
    chunk of the configuration), and K4 / K5 at the float64 path's Gram
    size (n = 375, k = 374: the global-memory rows, held in float64 only,
    the one dtype that runs them; K5 and ``torch.linalg.eigh`` are also
@@ -183,6 +196,51 @@ def expected_launches(s):
     P = s.topo.n_patches
     chunks = -(-P // (s.cfg.patch_chunk or P))
     return {k: v * chunks for k, v in per.items()}
+
+
+def device_ms(fn, reps=3):
+    """Device time of one call of ``fn``: the ``reps`` calls are queued
+    behind a ~25 ms spin kernel, so the events around them time the
+    device's work, not the host's time to issue a call whose device work
+    is shorter (``cuda_ms``)."""
+    import torch
+    fn()                                      # warm-up
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def k5_fns(sweeps, tol, n0=None):
+    """K5 on (B, n, n) rows, n even, of which n0 (default n) are the
+    matrix's -> the sorted eigenpairs (each matrix stops on its own):
+    (kernel, plain version, the kernel's rows launch alone).  The kernel
+    sorts and normalizes the eigenpairs itself; a checkout from before that
+    (``--root``) runs what its wrapper ran, the rows launch and
+    ``_finalize_rows``, which is also the plain version's glue."""
+    from dealii_slod_tpu_torch.ops import eig
+
+    def rows(g):
+        return eig._jacobi_rows_cuda(g, sweeps, tol,
+                                     eig._default_null_rel(g.dtype))
+
+    def kern(g):
+        m = n0 or g.shape[-1]
+        if hasattr(eig, "_jacobi_eigh_cuda"):
+            return eig._jacobi_eigh_cuda(g, m, sweeps, tol,
+                                         eig._default_null_rel(g.dtype))
+        return eig._finalize_rows(*rows(g), m, (g.shape[0],))
+
+    def plain(g):
+        XT, XB = eig.jacobi_rows_plain(g, sweeps, 1, tol,
+                                       eig._default_null_rel(g.dtype))
+        return eig._finalize_rows(XT, XB, n0 or g.shape[-1], (g.shape[0],))
+    return kern, plain, rows
 
 
 def cuda_ms(fn, reps=3):
@@ -342,8 +400,36 @@ def sweeps_bound(G, sweeps, tol, extra_flops, nbytes):
     return by(extra_flops + sweep_flops(c, G.shape[-1]), nbytes)
 
 
+def k5_sweep_report(name, make, sweeps, tol, dtypes=("float32", "float64")):
+    """The sweeps each matrix of ``make(dtype)`` (B, n, n) ran in K5, beside
+    the plain version's count under the same per-matrix stop, in each
+    dtype: a changed stopping rule shows as matrices whose counts
+    differ."""
+    import inspect
+
+    import torch
+    from dealii_slod_tpu_torch.ops import eig
+    if "counts" not in inspect.signature(eig._jacobi_rows_cuda).parameters:
+        print(f"[kernels] {name}: this checkout's K5 reports no sweep counts")
+        return
+    parts = []
+    for dt in dtypes:
+        g = make(getattr(torch, dt)).contiguous()
+        n_rel = eig._default_null_rel(g.dtype)
+        kc = eig._jacobi_rows_cuda(g, sweeps, tol, n_rel,
+                                   counts=True)[2].long().cpu()
+        pc = jacobi_sweep_counts(g, sweeps, tol, n_rel)
+        parts.append(f"{dt[5:]}-bit kernel mean "
+                     f"{float(kc.double().mean()):.2f} max {int(kc.max())}, "
+                     f"plain mean {float(pc.double().mean()):.2f} max "
+                     f"{int(pc.max())}, {int((kc != pc).sum())} of {len(kc)} "
+                     f"matrices differ")
+    print(f"[kernels] {name}: sweeps per matrix: " + "; ".join(parts))
+
+
 def check_case(table, card, name, shape, make, kern, plain, err, bound, lib,
-               path=None, time_dtype="float32", contract=None, f32=True):
+               path=None, time_dtype="float32", contract=None, f32=True,
+               kernel_fn=None):
     """One kernel against its plain version on the inputs ``make(dtype)``:
     float64 within 1e-10 of the f64 plain version, float32 (unless
     ``f32`` is False: sizes only the float64 path runs) within 4x the f32
@@ -351,8 +437,10 @@ def check_case(table, card, name, shape, make, kern, plain, err, bound, lib,
     ``contract(out, args64)`` is given, the kernel's contract error, and
     the plain f32 version's for the f32 bound, instead); then the kernel,
     its plain version and the library call ``lib`` (or None) timed with
-    CUDA events in ``time_dtype``, and the bound (``bound(args)`` ->
-    (ms, by)).  Adds the row to ``table``."""
+    CUDA events in ``time_dtype``, the kernel's device time (``device_ms``),
+    ``kernel_fn`` (where given: the kernel's launch alone, without the glue
+    of the wrapper that ``kern`` calls) as ``kernel_ms``, and the bound
+    (``bound(args)`` -> (ms, by)).  Adds the row to ``table``."""
     import torch
     args64 = make(torch.float64)
     ref, out64 = plain(*args64), kern(*args64)
@@ -385,11 +473,18 @@ def check_case(table, card, name, shape, make, kern, plain, err, bound, lib,
     ms = cuda_ms(lambda: kern(*targs))
     plain_ms = cuda_ms(lambda: plain(*targs))
     library_ms = None if lib is None else cuda_ms(lambda: lib(*targs))
+    extra = {"device_ms": device_ms(lambda: kern(*targs))}
+    dev_ms = extra["device_ms"]
+    if kernel_fn is not None:
+        extra["kernel_ms"] = cuda_ms(lambda: kernel_fn(*targs))
     bound_ms, bound_by = bound(targs)
     lib_s = "-" if library_ms is None else f"{library_ms:.3f} ms"
+    alone_s = ("" if kernel_fn is None else
+               f" (the launch alone {extra['kernel_ms']:.3f} ms)")
     print(f"[kernels] {name} {shape}: f64 err {e64:.3e} (<= 1e-10: "
           f"{ok64}); {msg32}; {time_dtype[5:]}-bit "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_s}, bound "
+          f"{ms:.3f} ms{alone_s}, device {dev_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, library {lib_s}, bound "
           f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.2f}% of it) "
           f"[{card}]")
     check(ok64 and ok32, f"{name} disagrees with its plain version")
@@ -399,7 +494,7 @@ def check_case(table, card, name, shape, make, kern, plain, err, bound, lib,
                       replaces=rep, path=path or kpath, shape=shape,
                       dtype=time_dtype, max_abs_err=abs_err, ms=ms,
                       plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, library_ms=library_ms))
+                      bound_by=bound_by, library_ms=library_ms, **extra))
 
 
 def tensor_core_bound(row, card, flops, nbytes):
@@ -511,16 +606,8 @@ def phase_kernels(card):
     X_wc = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (B, cD, k)) * np.logspace(0, -5, k), device="cuda")
     sw, st = 8, tab.smallk_tol                  # the W stage's sweeps, tol
-
-    def k5(Gp, kernel, sweeps, tol, n0):
-        # (B, n, n) rows, n even, of which n0 are real -> sorted
-        # eigenvalues and vectors (one stop per matrix)
-        n_rel = eig._default_null_rel(Gp.dtype)
-        if kernel:
-            XT, XB = eig._jacobi_rows_cuda(Gp, sweeps, tol, n_rel)
-        else:
-            XT, XB = eig.jacobi_rows_plain(Gp, sweeps, 1, tol, n_rel)
-        return eig._finalize_rows(XT, XB, n0, (Gp.shape[0],))
+    k5w = k5_fns(sw, st)                        # on W
+    k5j = k5_fns(tab.sweeps, tab.eig_tol, cD)   # on the factor rows
 
     f4 = 4  # bytes of a float32 (the timed dtype)
     n, kk = A.shape[-1], PT_m.shape[-1]
@@ -567,17 +654,13 @@ def phase_kernels(card):
         "K5 jacobi_eigh": (
             f"W ({B}, {k}, {k})",
             lambda dt: (W.to(dt),),
-            lambda g: k5(g, True, sw, st, k),
-            lambda g: k5(g, False, sw, st, k),
-            k5_err,
+            k5w[0], k5w[1], k5_err,
             lambda a: sweeps_bound(a[0], sw, st, 0, B * f4 * 2 * k * k),
             lambda w: torch.linalg.eigh(w)),
         "K5 jacobi_eigh [jacobi route]": (
             f"factor rows ({B}, {m126}, {m126})",
             lambda dt: (factor_rows(dt),),
-            lambda g: k5(g, True, tab.sweeps, tab.eig_tol, cD),
-            lambda g: k5(g, False, tab.sweeps, tab.eig_tol, cD),
-            k5_err,
+            k5j[0], k5j[1], k5_err,
             lambda a: sweeps_bound(a[0], tab.sweeps, tab.eig_tol, 0,
                                    B * f4 * 2 * m126 * m126),
             lambda g: torch.linalg.svd(g)),
@@ -592,6 +675,8 @@ def phase_kernels(card):
                                    B * f4 * (2 * k * cD + k * k)),
             None),
     }
+    k5_alone = {"K5 jacobi_eigh": k5w[2],
+                "K5 jacobi_eigh [jacobi route]": k5j[2]}
     table = []
     for name, (shape, make, kern, plain, err, bound, lib) in cases.items():
         if name == "K4 mgs_qr":
@@ -610,7 +695,12 @@ def phase_kernels(card):
                    lib, path="jacobi" if name.endswith("[jacobi route]")
                    else None,
                    contract=(lambda q, a: qr_contract_err(q, a[0]))
-                   if name == "K4 mgs_qr" else None)
+                   if name == "K4 mgs_qr" else None,
+                   kernel_fn=k5_alone.get(name))
+        if name == "K5 jacobi_eigh":
+            k5_sweep_report(name, W.to, sw, st)
+        elif name == "K5 jacobi_eigh [jacobi route]":
+            k5_sweep_report(name, factor_rows, tab.sweeps, tab.eig_tol)
         if name == "K1 fused_spd_multirhs":
             tensor_core_bound(table[-1], card, *k1_work)
             f32_gate_all_chunks(s, tab, name)
@@ -753,14 +843,7 @@ def phase_el_kernels(card):
         return k, Gj, X_it, 0.5 * (W + W.mT)
 
     sw, st = 8, tab.smallk_tol                  # the W stage's sweeps, tol
-
-    def k5(g, kernel):
-        n_rel = eig._default_null_rel(g.dtype)
-        if kernel:
-            XT, XB = eig._jacobi_rows_cuda(g, sw, st, n_rel)
-        else:
-            XT, XB = eig.jacobi_rows_plain(g, sw, 1, st, n_rel)
-        return eig._finalize_rows(XT, XB, g.shape[-1], (g.shape[0],))
+    k5, k5_plain, k5_rows = k5_fns(sw, st)
 
     from dealii_slod_tpu_torch.utils import kernels
 
@@ -793,10 +876,10 @@ def phase_el_kernels(card):
     check_case(
         table, card, "K5 jacobi_eigh [elasticity]",
         f"W ({BC}, {k32}, {k32})",
-        lambda dt: (W.to(dt).contiguous(),), lambda g: k5(g, True),
-        lambda g: k5(g, False), k5_err,
+        lambda dt: (W.to(dt).contiguous(),), k5, k5_plain, k5_err,
         lambda a: sweeps_bound(a[0], sw, st, 0, BC * f4 * 2 * k32 * k32),
-        lambda w: torch.linalg.eigh(w), path="elasticity")
+        lambda w: torch.linalg.eigh(w), path="elasticity", kernel_fn=k5_rows)
+    k5_sweep_report("K5 jacobi_eigh [elasticity]", W.to, sw, st)
     del gpiv, X_it, W
 
     k64, Gj, X_it, W_all = smallk_operands(torch.float64, 1e-13)
@@ -830,12 +913,13 @@ def phase_el_kernels(card):
     check_case(
         table, card, "K5 jacobi_eigh [global rows]",
         f"W ({nsel} of {BC}, {k64}, {k64}), f64 path",
-        lambda dt: (W.to(dt).contiguous(),), lambda g: k5(g, True),
-        lambda g: k5(g, False), k5_err,
+        lambda dt: (W.to(dt).contiguous(),), k5, k5_plain, k5_err,
         lambda a: sweeps_bound(a[0], sw, st, 0, nsel * f8 * 2 * k64 * k64),
         lambda w: torch.linalg.eigh(w), path="elasticity-r3-f64",
-        time_dtype="float64", f32=False)
-    ms_all = cuda_ms(lambda: k5(W_all, True), 1)
+        time_dtype="float64", f32=False, kernel_fn=k5_rows)
+    k5_sweep_report("K5 jacobi_eigh [global rows]", W.to, sw, st,
+                    dtypes=("float64",))
+    ms_all = cuda_ms(lambda: k5(W_all), 1)
     lib_all = cuda_ms(lambda: torch.linalg.eigh(W_all), 1)
     table[-1]["ms_full_batch"] = ms_all
     table[-1]["library_ms_full_batch"] = lib_all
@@ -996,9 +1080,9 @@ def phase_main(profile=False):
     return out, f64
 
 
-def phase_weig(f64):
+def phase_weig(f64, profile=False):
     s, out = run_path("weig", bench_cfg("float32", smallk_weig=True),
-                      timed=1)
+                      timed=1, profile=profile)
     e = rel(s.prolong_lod_solution().double().cpu(), f64)
     print(f"[weig] prolonged f32 (K8) vs main's f64 rel max diff {e:.3e} "
           f"(<= 1e-2)")
@@ -1037,8 +1121,13 @@ def main():
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one step of the jacobi, the main and "
-                    "the elasticity path (torch.profiler)")
+                    help="also profile one step of the jacobi, main, weig "
+                    "and elasticity paths (torch.profiler)")
+    ap.add_argument("--root", default=HERE,
+                    help="a directory inside this checkout that holds "
+                    "another commit's dealii_slod_tpu_torch (for example "
+                    "one unpacked by git archive): its package and kernels "
+                    "run under this script's phases and timing")
     args = ap.parse_args()
     phases = args.phases.split(",")
     try:
@@ -1049,11 +1138,15 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "dealii_slod_tpu_torch")):
-        print("chip_smoke: the port package is not beside this script",
-              file=sys.stderr)
+    root = os.path.realpath(args.root)
+    if os.path.commonpath([root, HERE]) != HERE:
+        print(f"chip_smoke: --root must lie inside {HERE}", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    if not os.path.isdir(os.path.join(root, "dealii_slod_tpu_torch")):
+        print("chip_smoke: the port package is not in "
+              f"{os.path.relpath(root, HERE)}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1074,7 +1167,7 @@ def main():
         if "main" in phases:
             paths["main"], f64 = phase_main(args.profile)
         if "weig" in phases and f64 is not None:
-            paths["weig"] = phase_weig(f64)
+            paths["weig"] = phase_weig(f64, args.profile)
         if "elasticity" in phases:
             paths.update(phase_elasticity(args.profile))
     except Exception as exc:                     # any phase failure
@@ -1093,7 +1186,8 @@ def main():
                              "launches", "max_abs_err", "ms", "plain_ms",
                              "bound_ms", "bound_by", "library_ms", "shape",
                              "dtype", "launches_by_path", "ms_full_batch",
-                             "library_ms_full_batch", "bound_ms_3xtf32")
+                             "library_ms_full_batch", "bound_ms_3xtf32",
+                             "device_ms", "kernel_ms")
          if k in row}
         for row in table]}))
     print(json.dumps({"ok": True, "device": {

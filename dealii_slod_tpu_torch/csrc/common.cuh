@@ -4,6 +4,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <mutex>
 
 namespace slod {
 
@@ -28,45 +29,48 @@ inline size_t max_smem_optin() {
 // arrays when its dynamic buffer is sized against the limit.
 constexpr size_t STATIC_SMEM_MARGIN = 1024;
 
+// 16 bytes of T, for one vector load or store.
+template <typename T>
+struct alignas(16) Vec16 {
+  T v[16 / sizeof(T)];
+};
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Unpivoted Gauss-Jordan sweep inverse of one SPD (m, m) row-major matrix
-// held in shared memory, by the whole CTA: M <- M^-1.  `col` and `row` are
-// m-element shared scratch vectors.  Step k sweeps pivot k:
-//   M[i,j] -= (M[i,k] / p) M[k,j];  row k <- row k / p;  col k <- col k / p;
-//   M[k,k] <- -1 / p
-// and after all m steps the matrix holds -M^-1 (the sweep operator; SPD
-// pivots stay positive, so no pivoting).  This is the arithmetic of
-// dealii_slod_tpu/ops/patch_solve.py: _gj_invert_spd.
-template <typename T>
-__device__ void gj_sweep_invert(T* M, T* col, T* row, int m) {
-  const int tid = threadIdx.x, nth = blockDim.x;
-  for (int kp = 0; kp < m; ++kp) {
-    for (int i = tid; i < m; i += nth) {
-      col[i] = M[i * m + kp];
-      row[i] = M[kp * m + i];
-    }
-    __syncthreads();
-    const T d = T(1) / row[kp];
-    for (int e = tid; e < m * m; e += nth) {
-      const int i = e / m, j = e - i * m;
-      T v;
-      if (i == kp)
-        v = (j == kp) ? -d : row[j] * d;
-      else if (j == kp)
-        v = col[i] * d;
-      else
-        v = M[e] - (col[i] * d) * row[j];
-      M[e] = v;
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < m * m; e += nth) M[e] = -M[e];
-  __syncthreads();
+// Opts kernel `fn` in to `bytes` of dynamic shared memory on the current
+// device (needed above 48 KB), calling cudaFuncSetAttribute only where
+// `bytes` exceeds what `fn` was already opted in to there: once per kernel
+// and device on a path whose sizes do not grow.  The table is shared by
+// every launcher and guarded: ctypes drops the GIL during a launch, so two
+// threads may launch at once.
+inline cudaError_t opt_in_smem(const void* fn, size_t bytes) {
+  struct Entry {
+    const void* fn;
+    int dev;
+    size_t bytes;
+  };
+  static Entry done[128];
+  static int n_done = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> hold(mu);
+  int i = 0;
+  while (i < n_done && (done[i].fn != fn || done[i].dev != dev)) ++i;
+  if (i < n_done && bytes <= done[i].bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  if (i < n_done)
+    done[i].bytes = bytes;
+  else if (n_done < 128)
+    done[n_done++] = Entry{fn, dev, bytes};
+  return cudaSuccess;
 }
 
 }  // namespace slod

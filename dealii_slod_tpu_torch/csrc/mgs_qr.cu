@@ -100,9 +100,8 @@ int launch_mgs(void* X, void* Q, void* ws, int B, int n, int k,
   const long long ge = mgs_ws_elems<T>(n, k);
   if (ge < 0 || (ge > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem = ge > 0 ? 0 : (size_t)n * k * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      mgs_qr_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaError_t err = slod::opt_in_smem(
+      reinterpret_cast<const void*>(mgs_qr_kernel<T>), smem);
   if (err != cudaSuccess) return (int)err;
   mgs_qr_kernel<T><<<B, MGS_THREADS, smem, (cudaStream_t)stream>>>(
       (const T*)X, (T*)Q, ge > 0 ? (T*)ws : nullptr, n, k);

@@ -77,10 +77,24 @@
 // K2 replaces dealii_slod_tpu/ops/patch_solve.py: gj_inverse_pallas
 // (_gj_inverse_kernel -> _gj_invert_spd), the m-step sweep on (B, m, m)
 // SPD matrices padded to m = 128 with the identity.  What bounds it: the
-// m-step dependency chain (two CTA barriers per step), not bytes or FLOPs.
-// One CTA per matrix keeps the whole matrix in dynamic shared memory
-// (64 KB f32, 128 KB f64) for all m steps, so global memory is touched
-// once on the way in and once on the way out.
+// 128-step dependency chain, not bytes (64 KB a matrix in f32) or FLOPs
+// (2 m^3 = 4.2 MFLOP).  Design (that of gj_sweep_invert64 below, at
+// m = 128): one CTA per matrix reads A (m0 <= 128, through its batch and
+// row strides, so a pivot block of a larger matrix needs no copy) into
+// registers as its identity extension to 128, keeps it there for all 128
+// steps and writes the m0 x m0 inverse to a separate output; thread
+// (ty, tx) holds the TM x TN tile at (TM ty, TN tx) (f32: 8 x 8 tiles,
+// 256 threads; f64: 8 x 4, 512 threads).  Per step the owners publish the
+// pivot row and column to double-buffered shared vectors, one CTA
+// barrier, every thread applies the rank-1 update to its tile, and the
+// owners overwrite the pivot row, column and element.  Each element goes
+// through the sweep's arithmetic in the same order as in the plain
+// version (the rank-1 update M - (col d) row, the row and column scaled
+// by d, the pivot -d, the final negation).  What holds it back now
+// (NVIDIA H100 80GB HBM3, 700 W): ~700 cycles a step, the chain barrier
+// -> pivot load -> division -> 64 FMAs a thread -> the owners' stores ->
+// barrier, with two warps a scheduler to hide it; a batch of 384 takes
+// two waves (114 registers a thread: two CTAs an SM).
 
 #include "common.cuh"
 
@@ -92,7 +106,7 @@ constexpr int NB = 64;            // panel width of the block LDL^T
 constexpr int LDL_THREADS = 256;  // 8 warps per patch
 constexpr int LDL_STAGES = 4;     // operand ring depth
 constexpr int LOAD_SLICES = 4;    // a stage's loads, started between k-steps
-constexpr int K2_THREADS = 512;
+constexpr int GJ_M = 128;         // K2 sweeps A extended to 128 x 128
 
 template <typename T>
 struct alignas(2 * sizeof(T)) Pair {
@@ -471,7 +485,7 @@ __device__ __noinline__ void cta_gemm(T* Cp, int ldc, const T* C0, int ldc0,
 }
 
 // Unpivoted Gauss-Jordan sweep inverse of one SPD 64 x 64 block (the
-// arithmetic of slod::gj_sweep_invert, step for step) by the CTA's 256
+// arithmetic of gj_inverse_plain, step for step) by the CTA's 256
 // threads: thread (ty, tx) of a 16 x 16 grid keeps the 4 x 4 block at
 // (4 ty, 4 tx) in registers for all 64 steps.  Per step the owners publish
 // the pivot row and column in shared memory (`rc`, 4 x 64, double
@@ -648,45 +662,125 @@ int launch_fused(void* A, void* X, void* Tm, void* work, int P, int n, int k,
   if (n % NB || k % NB || P <= 0 || n <= 0 || k <= 0)
     return (int)cudaErrorInvalidValue;
   constexpr size_t smem = ldl_smem_bytes<T>();
-  // the opt-in to more than 48 KB of dynamic shared memory, once per device
-  static bool opted[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = slod::opt_in_smem(
+      reinterpret_cast<const void*>(fused_ldl_kernel<T, WITH_T>), smem);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !opted[dev]) {
-    err = cudaFuncSetAttribute(fused_ldl_kernel<T, WITH_T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) opted[dev] = true;
-  }
   fused_ldl_kernel<T, WITH_T><<<P, LDL_THREADS, smem, (cudaStream_t)stream>>>(
       (T*)A, (T*)X, (T*)Tm, (T*)work, n, k);
   return (int)cudaGetLastError();
 }
 
-// One CTA per matrix: M (B, m, m) is inverted in place.
-template <typename T>
-__global__ void __launch_bounds__(K2_THREADS) gj_inverse_kernel(T* M, int m) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* S = reinterpret_cast<T*>(smem_raw);
-  T* Mp = M + (size_t)blockIdx.x * m * m;
-  for (int e = threadIdx.x; e < m * m; e += K2_THREADS) S[e] = Mp[e];
-  __syncthreads();
-  slod::gj_sweep_invert(S, S + m * m, S + m * m + m, m);
-  for (int e = threadIdx.x; e < m * m; e += K2_THREADS) Mp[e] = S[e];
+// COUNT elements between registers and 16-byte aligned shared memory
+template <typename T, int COUNT>
+__device__ __forceinline__ void load16(T* dst, const T* src) {
+  constexpr int W = 16 / sizeof(T);
+#pragma unroll
+  for (int u = 0; u < COUNT / W; ++u) {
+    const slod::Vec16<T> q = reinterpret_cast<const slod::Vec16<T>*>(src)[u];
+#pragma unroll
+    for (int e = 0; e < W; ++e) dst[u * W + e] = q.v[e];
+  }
+}
+template <typename T, int COUNT>
+__device__ __forceinline__ void store16(T* dst, const T* src) {
+  constexpr int W = 16 / sizeof(T);
+#pragma unroll
+  for (int u = 0; u < COUNT / W; ++u) {
+    slod::Vec16<T> q;
+#pragma unroll
+    for (int e = 0; e < W; ++e) q.v[e] = src[u * W + e];
+    reinterpret_cast<slod::Vec16<T>*>(dst)[u] = q;
+  }
 }
 
+// One CTA per matrix: A (batch stride sA, row stride ldA, m0 <= 128) ->
+// Out (B, m0, m0) = A^-1.  The matrix sits in registers as a 128 x 128
+// identity extension of A, (128 / TM) x (128 / TN) tiles of TM x TN; the
+// L steps of one owner block are unrolled, so every register index is
+// static.  The extension keeps the padded coordinates decoupled, so the
+// leading block comes out exactly as an m0-step sweep would leave it.
+template <typename T, int TM, int TN>
+__global__ void __launch_bounds__((GJ_M / TM) * (GJ_M / TN))
+    gj_inverse_kernel(const T* __restrict__ A, T* __restrict__ Out, int m0,
+                      long long sA, int ldA) {
+  constexpr int GN = GJ_M / TN;
+  constexpr int L = TM > TN ? TM : TN;
+  __shared__ __align__(16) T rc[2][2][GJ_M];   // [step parity][row, col]
+  const int ty = threadIdx.x / GN, tx = threadIdx.x % GN;
+  const T* Ap = A + (size_t)blockIdx.x * sA;
+  T m[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int r = TM * ty + i, c = TN * tx + j;
+      m[i][j] = (r < m0 && c < m0) ? Ap[(size_t)r * ldA + c]
+                                   : T(r == c ? 1 : 0);
+    }
+  for (int kb = 0; kb < GJ_M / L; ++kb) {
+#pragma unroll
+    for (int kq = 0; kq < L; ++kq) {
+      const int kp = kb * L + kq;
+      const int ri = kq % TM, cj = kq % TN;
+      const bool row_owner = ty == kp / TM, col_owner = tx == kp / TN;
+      T* row = rc[kq & 1][0];
+      T* col = rc[kq & 1][1];
+      if (row_owner) store16<T, TN>(row + TN * tx, m[ri]);
+      if (col_owner) {
+        T cv[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) cv[i] = m[i][cj];
+        store16<T, TM>(col + TM * ty, cv);
+      }
+      __syncthreads();
+      const T d = T(1) / row[kp];
+      T r[TN], c[TM];
+      load16<T, TN>(r, row + TN * tx);
+      load16<T, TM>(c, col + TM * ty);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) c[i] *= d;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) m[i][j] -= c[i] * r[j];
+      if (row_owner) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) m[ri][j] = r[j] * d;
+      }
+      if (col_owner) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) m[i][cj] = c[i];
+      }
+      if (row_owner && col_owner) m[ri][cj] = -d;
+    }
+  }
+  T* Op = Out + (size_t)blockIdx.x * m0 * m0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int r = TM * ty + i, c = TN * tx + j;
+      if (r < m0 && c < m0) Op[(size_t)r * m0 + c] = -m[i][j];
+    }
+}
+
+// The tile of one thread: 8 x 8 in f32 (256 threads), 8 x 4 in f64 (512).
 template <typename T>
-int launch_gj(void* M, int B, int m, void* stream) {
-  if (B <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)m * m + 2 * m) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      gj_inverse_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gj_inverse_kernel<T><<<B, K2_THREADS, smem, (cudaStream_t)stream>>>(
-      (T*)M, m);
+struct GjTile {
+  static constexpr int TM = 8, TN = sizeof(T) == 4 ? 8 : 4;
+};
+
+// No dynamic shared memory (the 2 KB / 4 KB pivot vectors are static), so
+// no opt-in to set.
+template <typename T>
+int launch_gj(void* A, void* Out, int B, int m0, long long sA, int ldA,
+              void* stream) {
+  if (B <= 0 || m0 <= 0 || m0 > GJ_M || ldA < m0 || sA < (long long)m0 * ldA)
+    return (int)cudaErrorInvalidValue;
+  constexpr int TM = GjTile<T>::TM, TN = GjTile<T>::TN;
+  gj_inverse_kernel<T, TM, TN>
+      <<<B, (GJ_M / TM) * (GJ_M / TN), 0, (cudaStream_t)stream>>>(
+          (const T*)A, (T*)Out, m0, sA, ldA);
   return (int)cudaGetLastError();
 }
 
@@ -723,11 +817,13 @@ long long slod_spd_multirhs_solve_ws_f32(int n, int k) {
 long long slod_spd_multirhs_solve_ws_f64(int n, int k) {
   return (long long)ldl_work_elems(n, k, false);
 }
-int slod_gj_inverse_f32(void* M, int B, int m, void* stream) {
-  return launch_gj<float>(M, B, m, stream);
+int slod_gj_inverse_f32(void* A, void* Out, int B, int m0, long long sA,
+                        int ldA, void* stream) {
+  return launch_gj<float>(A, Out, B, m0, sA, ldA, stream);
 }
-int slod_gj_inverse_f64(void* M, int B, int m, void* stream) {
-  return launch_gj<double>(M, B, m, stream);
+int slod_gj_inverse_f64(void* A, void* Out, int B, int m0, long long sA,
+                        int ldA, void* stream) {
+  return launch_gj<double>(A, Out, B, m0, sA, ldA, stream);
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ jacobi_eigh_factor, mgs_qr_pallas, weig_pallas, smallk_truncated_dvec``).
 The working rows sit in the caterpillar (top, bottom) pair layout: rows
 2k / 2k+1 are pair k, every round rotates all pairs at once, and the
 tournament advance is a fixed shift.  No rotation accumulator is kept: for
-PSD input the converged rows are lambda_i v_i^T (``_finalize_rows``).
+PSD input the converged rows are lambda_i v_i^T (``_finalize_rows``; the
+CUDA kernels sort and normalize them themselves).
 
 Each kernel wrapper takes its plain PyTorch version for a CPU tensor and
 launches its CUDA kernel for a CUDA tensor."""
@@ -116,23 +117,71 @@ def jacobi_rows_plain(G: torch.Tensor, sweeps: int, block: int, tol: float,
     return XT[:B0], XB[:B0]
 
 
-def _jacobi_rows_cuda(G: torch.Tensor, sweeps: int, tol: float,
-                      null_rel: float):
+def _launch_k5(G, sweeps, tol, null_rel, XT=None, XB=None, cnt=None,
+               lam=None, V=None):
+    """K5 on the (B, n, n) rows G, n even: the final rows to XT, XB, or the
+    sorted eigenpairs to lam (B, n0), V (B, n0, n0); the sweeps each matrix
+    ran to cnt where given."""
     B, n, _ = G.shape
     kernels.check_cuda("jacobi_eigh", G)
-    XT = torch.empty((B, n // 2, n), dtype=G.dtype, device=G.device)
-    XB = torch.empty_like(XT)
     ws = kernels.workspace("K5 jacobi_eigh", "slod_jacobi_rows", G.dtype,
                            G.device, B, n)
     kernels.launch("K5 jacobi_eigh", "slod_jacobi_rows", G.dtype, G.device,
-                   G.data_ptr(), XT.data_ptr(), XB.data_ptr(), _ptr(ws), B,
-                   n, sweeps, float(tol), float(null_rel), _eps(G.dtype))
-    return XT, XB
+                   G.data_ptr(), _ptr(XT), _ptr(XB), _ptr(ws), _ptr(cnt),
+                   _ptr(lam), _ptr(V), B, n,
+                   n if lam is None else lam.shape[-1], sweeps, float(tol),
+                   float(null_rel), _eps(G.dtype))
+
+
+def _jacobi_rows_cuda(G: torch.Tensor, sweeps: int, tol: float,
+                      null_rel: float, counts: bool = False):
+    """K5's launch on (B, n, n) rows -> (XT, XB), and with ``counts`` the
+    sweeps each matrix ran (B,) int32 as a third output."""
+    B, n, _ = G.shape
+    XT = torch.empty((B, n // 2, n), dtype=G.dtype, device=G.device)
+    XB = torch.empty_like(XT)
+    cnt = (torch.empty(B, dtype=torch.int32, device=G.device) if counts
+           else None)
+    _launch_k5(G, sweeps, tol, null_rel, XT=XT, XB=XB, cnt=cnt)
+    return (XT, XB, cnt) if counts else (XT, XB)
+
+
+def _jacobi_eigh_cuda(G: torch.Tensor, n0: int, sweeps: int, tol: float,
+                      null_rel: float):
+    """K5 with the sort and normalization in the kernel: (B, n, n) rows, n
+    even, of which n0 (n, or n - 1 after an odd n's zero pad) are the
+    matrix's -> what ``_finalize_rows`` gives from the rows: eigenvalues
+    descending (B, n0), eigenvectors as columns (B, n0, n0)."""
+    B = G.shape[0]
+    lam = torch.empty((B, n0), dtype=G.dtype, device=G.device)
+    V = torch.empty((B, n0, n0), dtype=G.dtype, device=G.device)
+    _launch_k5(G, sweeps, tol, null_rel, lam=lam, V=V)
+    return lam, V
+
+
+def caterpillar_slots(n: int, r: int):
+    """The rows (numbered as at round 0: top slot q holds row 2q, bottom
+    slot q row 2q + 1) that the caterpillar's top and bottom slots hold
+    after ``r`` advances, n even -> (top, bottom), lists of n / 2.  Top
+    slot 0 keeps row 0; the other n - 1 slots, in the ring order t1 ..
+    t_{m-1}, b_{m-1} .. b0, pass their row one place along the ring per
+    round.  This closed form is what K5's CTA routine computes
+    (``csrc/jacobi_eigh.cu: slot_top, slot_bot``) instead of moving rows
+    as ``_caterpillar_round_nj`` does."""
+    m = n // 2
+    ring = 2 * m - 1
+
+    def ring_row(p):
+        return 2 * (p + 1) if p < m - 1 else 2 * (2 * m - 2 - p) + 1
+
+    top = [0] + [ring_row((q - 1 - r) % ring) for q in range(1, m)]
+    bot = [ring_row((2 * m - 2 - q - r) % ring) for q in range(m)]
+    return top, bot
 
 
 def _ptr(ws: torch.Tensor | None) -> int:
-    """Address of a kernel workspace (0: none, the kernel works in shared
-    memory)."""
+    """Address of a kernel workspace or optional output (0: none; a kernel
+    given no workspace works in shared memory or registers)."""
     return 0 if ws is None else ws.data_ptr()
 
 
@@ -170,9 +219,10 @@ def jacobi_eigh(G: torch.Tensor, sweeps: int = 12, block: int = 16,
         G = Gp
     G = G.contiguous()
     if G.is_cuda:
-        XT, XB = _jacobi_rows_cuda(G, sweeps, tol, null_rel)
-    else:
-        XT, XB = jacobi_rows_plain(G, sweeps, block, tol, null_rel)
+        lam, V = _jacobi_eigh_cuda(G, n0, sweeps, tol, null_rel)
+        return (lam.reshape(batch_shape + (n0,)),
+                V.reshape(batch_shape + (n0, n0)))
+    XT, XB = jacobi_rows_plain(G, sweeps, block, tol, null_rel)
     return _finalize_rows(XT, XB, n0, batch_shape)
 
 
@@ -263,8 +313,9 @@ def weig(ZT: torch.Tensor, YT: torch.Tensor, sweeps: int = 8,
     k even, for W = Z^T G Z with G SPD.  Returns (eigenvalues descending
     (B, k), eigenvectors as columns (B, k, k)).  On CUDA one CTA per matrix
     builds W in its row buffer (shared memory where it fits, a global
-    workspace otherwise) and sweeps it there (each matrix stops on its
-    own); ``block`` applies to the plain version only."""
+    workspace otherwise), sweeps it there (each matrix stops on its own)
+    and writes the sorted, normalized eigenpairs; ``block`` applies to the
+    plain version only."""
     B, k, n = ZT.shape
     if k % 2 or YT.shape != ZT.shape:
         raise ValueError(f"weig: ZT {tuple(ZT.shape)}, YT {tuple(YT.shape)}"
@@ -275,15 +326,15 @@ def weig(ZT: torch.Tensor, YT: torch.Tensor, sweeps: int = 8,
         null_rel = _default_null_rel(ZT.dtype)
     kernels.check_cuda("weig", ZT, YT, contiguous=False)
     ZT, YT = ZT.contiguous(), YT.contiguous()
-    XT = torch.empty((B, k // 2, k), dtype=ZT.dtype, device=ZT.device)
-    XB = torch.empty_like(XT)
-    ws = kernels.workspace("K8 weig", "slod_jacobi_rows", ZT.dtype,
-                           ZT.device, B, k)
+    lam = torch.empty((B, k), dtype=ZT.dtype, device=ZT.device)
+    V = torch.empty((B, k, k), dtype=ZT.dtype, device=ZT.device)
+    ws = kernels.workspace("K8 weig", "slod_weig", ZT.dtype, ZT.device, B,
+                           k)
     kernels.launch("K8 weig", "slod_weig", ZT.dtype, ZT.device,
-                   ZT.data_ptr(), YT.data_ptr(), XT.data_ptr(),
-                   XB.data_ptr(), _ptr(ws), B, k, n, sweeps, float(tol),
+                   ZT.data_ptr(), YT.data_ptr(), lam.data_ptr(),
+                   V.data_ptr(), _ptr(ws), B, k, n, sweeps, float(tol),
                    float(null_rel), _eps(ZT.dtype))
-    return _finalize_rows(XT, XB, k, (B,))
+    return lam, V
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ import torch
 from dealii_slod_tpu_torch.utils import kernels
 
 NB = 64          # K1 / K6 panel width (the kernels' tile size)
-GJ_PAD = 128     # K2 pads m up to a multiple of this
+GJ_PAD = 128     # K2's size: it takes m <= 128 (the blocked inverse's pivot)
 
 # The reference's leaf budget of the Schur split: the TPU's scoped-VMEM
 # budget for one solve-only call (scratch A, 4 n^2 B, plus scratch X,
@@ -273,20 +273,25 @@ def gj_inverse_plain(A: torch.Tensor) -> torch.Tensor:
 
 def gj_inverse(A: torch.Tensor) -> torch.Tensor:
     """Kernel K2 (replaces ``dealii_slod_tpu/ops/patch_solve.py:
-    gj_inverse_pallas``): (B, m, m) SPD -> inverse.  On CUDA, m is padded
-    to 128 with the identity and one CTA sweeps each matrix in shared
-    memory."""
+    gj_inverse_pallas``): (B, m, m) SPD, m <= 128 -> inverse (a new
+    contiguous tensor).  On CUDA one CTA sweeps each matrix in registers as
+    its identity extension to 128; A is read through its batch and row
+    strides (a pivot block of a larger matrix is not copied)."""
     if not A.is_cuda:
         return gj_inverse_plain(A)
     Bn, m0, _ = A.shape
-    m = -(-m0 // GJ_PAD) * GJ_PAD
-    if m > GJ_PAD:
+    if m0 > GJ_PAD:
         raise ValueError(f"gj_inverse: m = {m0} > {GJ_PAD}")
     kernels.check_cuda("gj_inverse", A, contiguous=False)
-    M = _pad_spd(A, m)                     # inverted in place
+    sb, sr, sc = A.stride()
+    if sc != 1 or sr < m0 or (Bn > 1 and sb < m0 * sr):
+        A = A.contiguous()
+        sb, sr, _ = A.stride()
+    out = torch.empty((Bn, m0, m0), dtype=A.dtype, device=A.device)
     kernels.launch("K2 gj_inverse", "slod_gj_inverse", A.dtype, A.device,
-                   M.data_ptr(), Bn, m)
-    return M[:, :m0, :m0].contiguous()
+                   A.data_ptr(), out.data_ptr(), Bn, m0,
+                   sb if Bn > 1 else m0 * sr, sr)
+    return out
 
 
 def spd_inverse_schur(M: torch.Tensor, nb: int = GJ_PAD) -> torch.Tensor:

@@ -30,14 +30,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIB_NAME = "libslod_kernels.so"
 
-# C entry points: argument codes p = pointer, i = int, d = double; every
+# C entry points: argument codes p = pointer, i = int, l = long long,
+# d = double; every
 # entry point also takes the CUDA stream last and returns cudaGetLastError()
 _SIGNATURES = {
     "slod_fused_spd_multirhs": "ppppiii",
     "slod_spd_multirhs_solve": "pppiii",
-    "slod_gj_inverse": "pii",
+    "slod_gj_inverse": "ppiili",
     "slod_stencil_trace": "pppiiiiiip",
-    "slod_jacobi_rows": "ppppiiiddd",
+    "slod_jacobi_rows": "pppppppiiiiddd",
     "slod_mgs_qr": "pppiii",
     "slod_weig": "pppppiiiiddd",
 }
@@ -49,8 +50,10 @@ _QUERIES = {
     "slod_spd_multirhs_solve_ws": "ii",
     "slod_mgs_qr_ws": "ii",
     "slod_jacobi_rows_ws": "i",
+    "slod_weig_ws": "i",
 }
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "d": ctypes.c_double}
 
 launches: Counter = Counter()
 _lib = None

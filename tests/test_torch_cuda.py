@@ -45,10 +45,32 @@ def test_k1_matches_plain(cuda, n0):
     assert rel(X, Xr) <= 1e-10 and rel(T, Tr) <= 1e-10
 
 
-def test_k2_matches_plain(cuda):
-    A = spd(np.random.default_rng(1), 7, 125).to(cuda)
-    assert rel(patch_solve.gj_inverse(A),
-               patch_solve.gj_inverse_plain(A)) <= 1e-10
+def _gate(dtype, plain_err):
+    """float64 within 1e-10 of the float64 plain version; float32 against it
+    within 4x the float32 plain version's own error + 1e-6."""
+    return 1e-10 if dtype == torch.float64 else 4 * plain_err + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 3, 384])
+@pytest.mark.parametrize("m", [1, 5, 64, 125, 128])
+def test_k2_matches_plain(cuda, m, B, dtype):
+    """The register-tiled sweep (the kernel extends m to 128 with the
+    identity), over batches below and above one CTA per SM; also on a
+    strided view (the leading block of a larger batch, read in place)."""
+    A = spd(np.random.default_rng(1000 * m + B), B, m).to(cuda)
+    ref = patch_solve.gj_inverse_plain(A)
+    a = A.to(dtype)
+    big = torch.zeros((B, m + 3, m + 5), dtype=dtype, device=cuda)
+    big[:, :m, :m] = a
+    kernels.reset_launch_counts()
+    out = patch_solve.gj_inverse(a)
+    out_view = patch_solve.gj_inverse(big[:, :m, :m])
+    assert kernels.launches["K2 gj_inverse"] == 2 and out.shape == A.shape
+    assert torch.equal(out, out_view)
+    plain_err = rel(patch_solve.gj_inverse_plain(a).double(), ref)
+    err = rel(out.double(), ref)
+    assert err <= _gate(dtype, plain_err), (err, plain_err)
 
 
 @pytest.mark.parametrize("n0, k0", [(300, 17), (700, 500)])
@@ -140,10 +162,122 @@ def test_k3_k7_match_plain(cuda, dim, C):
                                                offs)) <= 1e-12
 
 
-def test_k5_matches_plain_block1(cuda):
-    """30 fixed sweeps (converged): with the adaptive stop at 3e-6 this
-    random spectrum's early-stopped vectors move ~4e-7 under a 1e-15 input
-    perturbation, so only a converged run compares at 1e-8."""
+def _k5_inputs(rng, B, n, deficient):
+    """PSD (B, n, n) in a random basis with the spectrum linspace(0.1, 1, n)
+    (n <= 32), or for larger n linspace(0.1, 0.5, n - 12) and twelve values
+    from 0.55 to 1, so that some eigenpairs lie more than 1e-2 lambda_max
+    from their neighbours and the float32 vectors are compared too;
+    ``deficient``: rows and columns 0 and n // 2 (n > 2: also n - 1) zeroed
+    in every matrix, and the last matrix all zero."""
+    Q, _ = np.linalg.qr(rng.standard_normal((B, n, n)))
+    spec = (np.linspace(0.1, 1.0, n) if n <= 32 else np.concatenate(
+        [np.linspace(0.1, 0.5, n - 12), np.linspace(0.55, 1.0, 12)]))
+    G = (Q * spec) @ Q.transpose(0, 2, 1)
+    if deficient:
+        idx = sorted({0, n // 2, n - 1} if n > 2 else {1})
+        G[:, idx, :] = 0.0
+        G[:, :, idx] = 0.0
+        G[-1] = 0.0
+    return torch.from_numpy(G)
+
+
+def _k5_plain(g, tol):
+    """The plain K5 (block=1, at most 30 sweeps) on the card, sorted."""
+    XT, XB = eig.jacobi_rows_plain(g, 30, 1, tol,
+                                   eig._default_null_rel(g.dtype))
+    return eig._finalize_rows(XT, XB, g.shape[-1], (g.shape[0],))
+
+
+def _k5_errs(out, ref, sep_rel):
+    """(eigenvalue error relative to lambda_max, error of the eigenvectors,
+    up to sign, of eigenpairs separated from their neighbours by more than
+    sep_rel lambda_max; a zero matrix's lambda_max counts as 1e-300)."""
+    lam, V = (t.double() for t in out)
+    lam_r, V_r = ref
+    lmax = lam_r[:, :1].clamp_min(1e-300)
+    e_lam = float(((lam - lam_r).abs() / lmax).max())
+    gaps = (lam_r[:, :, None] - lam_r[:, None, :]).abs() / lmax[:, :, None]
+    gaps = gaps + torch.eye(gaps.shape[-1], dtype=gaps.dtype,
+                            device=gaps.device) * 1e300
+    sep = (gaps.amin(-1) > sep_rel)[:, None, :]
+    sgn = torch.sign((V * V_r).sum(-2, keepdim=True))
+    return e_lam, float(((V * sgn - V_r).abs() * sep).max())
+
+
+# the kernel's sorted eigenpairs against _finalize_rows on its rows: the
+# norms' order of summation differs, so eigenpairs nearer than this
+# (relative to lambda_max) may swap, and agree to about it
+_SAME = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _same_as_rows(out, XT, XB, n0):
+    """(eigenvalue, separated-eigenvector) differences between the kernel's
+    own sort and normalization ``out`` and ``_finalize_rows`` on the rows
+    (XT, XB) of the same matrices."""
+    ref = eig._finalize_rows(XT, XB, n0, (XT.shape[0],))
+    return _k5_errs(out, tuple(t.double() for t in ref),
+                    100 * _SAME[XT.dtype])
+
+
+@pytest.mark.parametrize("deficient", [False, True])
+@pytest.mark.parametrize("tol", [0.0, 3e-6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 5, 384])
+@pytest.mark.parametrize("n", [2, 30, 32, 126])
+def test_k5_matches_plain_block1(cuda, n, B, dtype, tol, deficient):
+    """K5 against the plain version with each matrix stopping on its own
+    (block=1), at most 30 sweeps: n = 32 runs the warp-per-matrix routine,
+    the other n the CTA routine.  float64: eigenvalues within 1e-10 of
+    lambda_max, separated eigenvectors within 1e-8; float32 against the
+    float64 plain version within 4x the float32 plain version's error +
+    1e-6.  Zero rows stay exactly zero (no rotation touches them).  The
+    kernel's own sort and normalization agree with ``_finalize_rows`` on
+    the rows it writes otherwise (the norms' order of summation differs).
+    Every matrix reports the sweeps it ran."""
+    G = _k5_inputs(np.random.default_rng(n * B), B, n, deficient).to(cuda)
+    ref = _k5_plain(G, tol)
+    g = G.to(dtype)
+    kernels.reset_launch_counts()
+    out = eig.jacobi_eigh(g, sweeps=30, tol=tol)
+    assert kernels.launches["K5 jacobi_eigh"] == 1
+    sep = 1e-6 if dtype == torch.float64 else 1e-2
+    e_lam, e_vec = _k5_errs(out, ref, sep)
+    if dtype == torch.float64:
+        assert e_lam <= 1e-10 and e_vec <= 1e-8, (e_lam, e_vec)
+    else:
+        base = max(_k5_errs(_k5_plain(g, tol), ref, sep))
+        assert max(e_lam, e_vec) <= 4 * base + 1e-6, (e_lam, e_vec, base)
+    if deficient:
+        assert bool((out[0][-1] == 0).all()) and bool((out[1][-1] == 0).all())
+    XT, XB, counts = eig._jacobi_rows_cuda(g, 30, tol,
+                                           eig._default_null_rel(dtype),
+                                           counts=True)
+    assert max(_same_as_rows(out, XT, XB, n)) <= _SAME[dtype]
+    assert counts.shape == (B,) and bool((counts >= 1).all())
+    assert bool((counts <= 30).all()) and (tol > 0 or bool((counts == 30)
+                                                            .all()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n0", [31, 125])
+def test_k5_odd_n_drops_pad_row(cuda, n0, dtype):
+    """An odd n is padded with a zero row and column (n0 = 31: the warp
+    routine, 125: the CTA routine); the kernel's sort drops the pad row as
+    ``_finalize_rows`` does on the padded rows."""
+    G = _k5_inputs(np.random.default_rng(n0), 6, n0, False).to(cuda)
+    g = G.to(dtype)
+    lam, V = eig.jacobi_eigh(g, sweeps=30, tol=3e-6)
+    assert lam.shape == (6, n0) and V.shape == (6, n0, n0)
+    gp = torch.nn.functional.pad(g, (0, 1, 0, 1))
+    XT, XB = eig._jacobi_rows_cuda(gp, 30, 3e-6, eig._default_null_rel(dtype))
+    assert max(_same_as_rows((lam, V), XT, XB, n0)) <= _SAME[dtype]
+
+
+def test_k5_converged_matches_plain(cuda):
+    """30 fixed sweeps (converged) on a logspace spectrum at n = 125 (padded
+    to 126): with the adaptive stop at 3e-6 this random spectrum's
+    early-stopped vectors move ~4e-7 under a 1e-15 input perturbation, so
+    only a converged run compares at 1e-8."""
     rng = np.random.default_rng(3)
     Q, _ = np.linalg.qr(rng.standard_normal((9, 125, 125)))
     G = torch.from_numpy((Q * np.logspace(-3, 0, 125)) @ Q.transpose(0, 2, 1))

@@ -328,6 +328,27 @@ def test_jacobi_eigh_factor_matches_jax():
     assert np.abs(lam.numpy() - lam_true[::-1]).max() <= 1e-9
 
 
+@pytest.mark.parametrize("n, r", [(n, r) for n in (2, 4, 32, 126)
+                                  for r in range(n - 1)])
+def test_caterpillar_slots_match_plain_advance(n, r):
+    """K5's CTA routine never moves a row: it computes the row that each
+    caterpillar slot holds at round r in closed form (``caterpillar_slots``,
+    the twin of ``csrc/jacobi_eigh.cu: slot_top, slot_bot``).  The plain
+    version moves the rows: r of its rounds on the rows of the identity
+    (pairwise orthogonal, so no rotation changes them) give its slot
+    tables, which the closed form must equal."""
+    eye = torch.eye(n, dtype=torch.float64)
+    XT, XB = eye[None, 0::2].clone(), eye[None, 1::2].clone()
+    a = torch.ones((1, n // 2, 1), dtype=torch.float64)
+    b = a.clone()
+    for _ in range(r):
+        XT, XB, a, b, _ = eig._caterpillar_round_nj(
+            XT, XB, a, b, eig._eps(torch.float64))
+    top, bot = eig.caterpillar_slots(n, r)
+    assert torch.equal(XT[0], eye[top]) and torch.equal(XB[0], eye[bot])
+    assert eig.caterpillar_slots(n, r + n - 1) == (top, bot)   # period n-1
+
+
 def test_band_assembly_matches_jax():
     """ops/assembly: node windows, bands and the banded-stride dense
     embedding against the JAX functions (the embedding moves values:
