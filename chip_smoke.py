@@ -26,8 +26,10 @@ Phases (each prints its numbers; any failure exits non-zero):
    H100 SXM's float32 and HBM peaks); K1 and K6, which multiply on the
    tensor cores, also get that bound with the FLOPs at the 165 TFLOP/s of
    a 3xTF32 product, K1 is held against the plain blocked version that
-   sums in the kernel's order, and its float32 gate is read on every
-   chunk of the configuration, not only on the first.  Each row also
+   sums in the kernel's order, and its float32 gate, and K3's, is read
+   on every chunk of the configuration, not only on the first.  K3's and
+   K7's library call is ``torch.sparse.mm`` (cuSPARSE SpMM) with the
+   trace as a block-diagonal CSR matrix of the band.  Each row also
    gives the kernel's device time (the calls queued behind a spin kernel,
    so the host's issue time drops out).  A K5 / K8 row times the wrapper's
    function, sorted and normalized eigenpairs (the kernels now do that
@@ -41,8 +43,9 @@ Phases (each prints its numbers; any failure exits non-zero):
    sweep) on a real 128-pivot of T and of G + delta I, K4 / K5 at the
    float32 path's shapes (all 384 Grams of the chunk, k = 32: K5's
    warp-per-matrix routine; K6's float32 gate on the leaves of every
-   chunk of the configuration), and K4 / K5 at the float64 path's Gram
-   size (n = 375, k = 374: the global-memory rows, held in float64 only,
+   chunk of the configuration, K7's on every chunk's X), and K4 / K5 at
+   the float64 path's Gram size (n = 375, k = 374: the global-memory
+   rows, held in float64 only,
    the one dtype that runs them; K5 and ``torch.linalg.eigh`` are also
    timed on all 384 Grams); K1 on the whole 2187 block is timed beside
    the split, for the record;
@@ -508,28 +511,93 @@ def tensor_core_bound(row, card, flops, nbytes):
           f"{ms:.4f} ms ({what}; {100 * ms / row['ms']:.2f}% of it) [{card}]")
 
 
+def trace_operand(tab, X):
+    """X (B, nI, k) of the patch solve -> the trace's Xp (B, C, nNp, k):
+    the interior scattered onto the canvas, components first, the node
+    axis zero-padded by shiftN (``basis.stencil_apply``'s layout)."""
+    import torch
+    from dealii_slod_tpu_torch.models import basis
+    B, C, nN = X.shape[0], tab.C, tab.n_nodes
+    Xz = basis.scatter_interior(tab, X).reshape(B, nN, C, -1).transpose(1, 2)
+    return torch.nn.functional.pad(
+        Xz, (0, 0, tab.shiftN, tab.shiftN)).contiguous()
+
+
+def trace_spmm(band, nNp, shiftN, offs_flat):
+    """The library call that computes K3's / K7's function:
+    ``torch.sparse.mm`` (cuSPARSE SpMM) of the trace as one CSR matrix of the
+    band, block-diagonal over the patches (B C nN rows, 3^dim C nonzeros
+    each, columns ascending), times Xp viewed as (B C nNp, k).  The CSR
+    is built here, once; the returned call (band, Xp) -> S (B, C, nN, k)
+    runs the product alone."""
+    import torch
+    B, nN, W = band.shape
+    n_off = len(offs_flat)
+    C = round((W // n_off) ** 0.5)
+    dev = band.device
+    offs = torch.as_tensor([shiftN + int(o) for o in offs_flat], device=dev)
+    b = torch.arange(B, device=dev).view(B, 1, 1, 1, 1)
+    n = torch.arange(nN, device=dev).view(1, 1, nN, 1, 1)
+    d = torch.arange(C, device=dev).view(1, 1, 1, C, 1)
+    cols = ((b * C + d) * nNp + n + offs.view(1, 1, 1, 1, n_off)).expand(
+        B, C, nN, C, n_off)                         # (b, c, n, d, o)
+    vals = band.reshape(B, nN, n_off, C, C).permute(0, 3, 1, 4, 2)
+    crow = torch.arange(B * C * nN + 1, device=dev) * (C * n_off)
+    A = torch.sparse_csr_tensor(
+        crow.int(), cols.reshape(-1).int(), vals.reshape(-1),
+        size=(B * C * nN, B * C * nNp), check_invariants=False)
+    return lambda b_, x: torch.sparse.mm(
+        A, x.reshape(B * C * nNp, -1)).reshape(B, C, nN, -1)
+
+
+def spmm_check(name, lib, band, Xp, tab):
+    """The trace's library yardstick computes the trace: its float32
+    result within 1e-4 of the float64 plain version (a check of the
+    function, not of precision)."""
+    from dealii_slod_tpu_torch.ops import assembly
+    e = rel(lib(None, Xp.float()),
+            assembly.stencil_trace_plain(band, Xp, tab.shiftN,
+                                         tab.offs_flat))
+    print(f"[kernels] {name}: library (torch.sparse.mm, cuSPARSE SpMM) f32 "
+          f"err {e:.3e} against the f64 plain version (<= 1e-4)")
+    check(e <= 1e-4, f"{name}: the SpMM yardstick computes another "
+          "function")
+
+
 def f32_gate_all_chunks(s, tab, name, chunk=128):
     """The float32 gate of ``check_case`` (error against the float64 plain
     version <= 4x the float32 plain version's + 1e-6) on the real
     operators of every chunk of the configuration: K1's X and T, or, on
-    the elasticity configuration, K6's X at every leaf of the Schur split.
-    Prints the worst error-to-gate ratio; fails where one exceeds 1."""
+    the elasticity configuration, K6's X at every leaf of the Schur split;
+    and the trace (K3, or K7) on the chunk's band and the X that solve
+    gives (the split's X assembled from its plain leaves).  Prints the
+    worst error-to-gate ratio of each; fails where one exceeds 1."""
     import torch
     from dealii_slod_tpu_torch.models import basis
-    from dealii_slod_tpu_torch.ops import patch_solve
+    from dealii_slod_tpu_torch.ops import assembly, patch_solve
     split = s.solver_mode == "fused_split"
     full = {k: basis.coef_windows(s.cfg, s.grid, s.coef_q[k])
             for k in tab.coef_names}
     _, nlo, nhi, _ = s._uniform_inputs()
-    worst, n_cases = (0.0, None, 0.0, 0.0), 0
+    trace = "K3 stencil_trace" if tab.C == 1 else "K7 stencil_trace"
+    worst = {name: (0.0, None, 0.0, 0.0), trace: (0.0, None, 0.0, 0.0)}
+    n_cases = 0
+
+    def gate(kname, e, base, where):
+        g = 4 * base + 1e-6
+        if e / g >= worst[kname][0]:
+            worst[kname] = (e / g, where, e, g)
+
     for p0 in range(0, s.topo.n_patches, chunk):
         sel = slice(p0, p0 + chunk)
-        _, A, PT_m, _ = basis.prep(
+        band, A, PT_m, _ = basis.prep(
             tab, {k: v[sel] for k, v in full.items()},
             torch.as_tensor(nlo[sel], device="cuda"),
             torch.as_tensor(nhi[sel], device="cuda"))
-        ops = (split_leaf_operands(A, PT_m, tab.panel_nb)[1] if split
-               else [(A, PT_m)])
+        if split:
+            (X, _), ops = split_leaf_operands(A, PT_m, tab.panel_nb)
+        else:
+            ops = [(A, PT_m)]
         del A, PT_m
         for i, (a, b) in enumerate(ops):
             a32, b32 = a.float(), b.float()
@@ -544,17 +612,28 @@ def f32_gate_all_chunks(s, tab, name, chunk=128):
                 pl = patch_solve.fused_spd_multirhs_plain(a32, b32)
                 e = max(rel(o, r) for o, r in zip(out, ref))
                 base = max(rel(o, r) for o, r in zip(pl, ref))
-            gate = 4 * base + 1e-6
+                X = ref[0]
             n_cases += 1
-            if e / gate >= worst[0]:
-                worst = (e / gate, f"patches {p0}.., leaf {i + 1}"
-                         if split else f"patches {p0}..", e, gate)
+            gate(name, e, base, f"patches {p0}.., leaf {i + 1}" if split
+                 else f"patches {p0}..")
         del ops
-    print(f"[kernels] {name}: float32 gate on every chunk ({n_cases} "
-          f"solves): worst error / gate {worst[0]:.4f} at {worst[1]} "
-          f"(err {worst[2]:.3e}, gate {worst[3]:.3e})")
-    check(worst[0] <= 1.0, f"{name}: float32 error over the gate at "
-          f"{worst[1]}")
+        Xp = trace_operand(tab, X)
+        args = (tab.shiftN, tab.offs_flat)
+        ref = assembly.stencil_trace_plain(band, Xp, *args)
+        b32, x32 = band.float(), Xp.float()
+        gate(trace, rel(assembly.stencil_trace(b32, x32, *args), ref),
+             rel(assembly.stencil_trace_plain(b32, x32, *args), ref),
+             f"patches {p0}..")
+        del band, X, Xp, ref, b32, x32
+    n_chunks = -(-s.topo.n_patches // chunk)
+    for kname, count in ((name, f"{n_cases} solves"),
+                         (trace, f"{n_chunks} traces")):
+        w = worst[kname]
+        print(f"[kernels] {kname}: float32 gate on every chunk ({count}): "
+              f"worst error / gate {w[0]:.4f} at {w[1]} (err {w[2]:.3e}, "
+              f"gate {w[3]:.3e})")
+        check(w[0] <= 1.0, f"{kname}: float32 error over the gate at "
+              f"{w[1]}")
 
 
 def phase_kernels(card):
@@ -569,8 +648,7 @@ def phase_kernels(card):
     X64, Traw = patch_solve.fused_spd_multirhs_plain(A, PT_m)
     T = Traw / tab.Hdim + torch.diag_embed(1.0 - cvd)
     Tinv = patch_solve.gj_inverse_plain(T)
-    Xz = basis.scatter_interior(tab, X64)
-    Xp = torch.nn.functional.pad(Xz, (0, 0, tab.shiftN, tab.shiftN))[:, None]
+    Xp = trace_operand(tab, X64)
     S99, is99d = basis.trace_S_chunk(tab, band, X64, lo, hi, sd)
     G, _ = basis.finish_pre_from_S(tab, S99, Tinv, cvd, is99d)
     G = G[:, 0]
@@ -616,6 +694,7 @@ def phase_kernels(card):
     nN, n_off = band.shape[1], band.shape[2]
     nNp = Xp.shape[2]
     m126 = cD + cD % 2
+    k3_lib = trace_spmm(band.float(), nNp, tab.shiftN, tab.offs_flat)
     cases = {
         # name: (shape, make(dtype) -> args, kernel, plain, error,
         #        bound (ms, by) from f32 args, library call or None)
@@ -643,7 +722,7 @@ def phase_kernels(card):
             rel,
             lambda a: by(B * 2 * n_off * nN * kk,
                          B * f4 * (nN * n_off + nNp * kk + nN * kk)),
-            None),
+            k3_lib),
         "K4 mgs_qr": (
             f"X ({B}, {cD}, {k}) = Ginv Z",
             lambda dt: (X_it.to(dt),),
@@ -675,6 +754,7 @@ def phase_kernels(card):
                                    B * f4 * (2 * k * cD + k * k)),
             None),
     }
+    spmm_check("K3 stencil_trace", k3_lib, band, Xp, tab)
     k5_alone = {"K5 jacobi_eigh": k5w[2],
                 "K5 jacobi_eigh [jacobi route]": k5j[2]}
     table = []
@@ -758,9 +838,7 @@ def phase_el_kernels(card):
     del S99
     cD = tab.cD
     G = G.reshape(B * C, cD, cD)
-    Xp = torch.nn.functional.pad(
-        basis.scatter_interior(tab, X64).reshape(B, nN, C, -1).transpose(1, 2),
-        (0, 0, tab.shiftN, tab.shiftN)).contiguous()
+    Xp = trace_operand(tab, X64)
     kk = Xp.shape[-1]
     n_off = len(tab.offs_flat)
     nNp = Xp.shape[2]
@@ -784,6 +862,7 @@ def phase_el_kernels(card):
         tensor_core_bound(table[-1], card, *k6_work(n, k))
     del leaves
     f32_gate_all_chunks(s, tab, "K6 spd_multirhs_solve")
+    k7_lib = trace_spmm(band.float(), nNp, tab.shiftN, tab.offs_flat)
     check_case(
         table, card, "K7 stencil_trace",
         f"band ({B}, {nN}, {band.shape[2]}), X ({B}, {C}, {nNp}, {kk})",
@@ -795,8 +874,9 @@ def phase_el_kernels(card):
         lambda a: by(B * nN * kk * 2 * n_off * C * C,
                      B * f4 * (nN * n_off * C * C + C * nNp * kk
                                + C * nN * kk)),
-        None)
-    del Xp
+        k7_lib)
+    spmm_check("K7 stencil_trace", k7_lib, band, Xp, tab)
+    del Xp, k7_lib
     piv = T[:, :patch_solve.GJ_PAD, :patch_solve.GJ_PAD].contiguous()
     m = piv.shape[-1]
     check_case(

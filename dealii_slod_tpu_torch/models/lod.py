@@ -13,6 +13,8 @@ Jacobi stage (``"jacobi"``); every other knob value raises
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import warnings
 
 import numpy as np
@@ -29,6 +31,36 @@ from dealii_slod_tpu_torch.ops.assembly import (FineOperator,
                                                 assemble_load_vector)
 from dealii_slod_tpu_torch.ops.solvers import cg
 from dealii_slod_tpu_torch.utils.timers import StageTimer
+
+
+@contextlib.contextmanager
+def full_f32_matmuls():
+    """cuBLAS and cuDNN float32 products in full float32 (TF32 off) inside
+    the block, the caller's ``allow_tf32`` flags restored on the way out,
+    also when the block raises.  A flag that is already off is left
+    untouched."""
+    flags = [f for f in (torch.backends.cuda.matmul, torch.backends.cudnn)
+             if f.allow_tf32]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f in flags:
+            f.allow_tf32 = True
+
+
+def _full_f32(method):
+    """Runs a ``LODSolver`` method on the card under ``full_f32_matmuls``
+    (the reference scopes its matmul precision the same way, to the step
+    and to the basis stage)."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.device.type != "cuda":
+            return method(self, *args, **kwargs)
+        with full_f32_matmuls():
+            return method(self, *args, **kwargs)
+    return run
 
 
 def _not_ported(what: str, item: str):
@@ -105,6 +137,13 @@ def check_supported(cfg: SLODConfig, problem, device: torch.device) -> None:
             f" solver_gj2={cfg.solver_gj2}, split_bs={cfg.split_bs} are TPU "
             "variants of the patch solve; the CUDA kernels K1, K6 and K2 "
             "serve them all", stacklevel=3)
+    if cfg.matmul_precision not in ("high", "highest"):
+        # JAX's bf16 passes; the port's float32 GEMMs are full float32 and
+        # K1 / K6 multiply in 3xTF32, which serves "high" and "highest"
+        warnings.warn(
+            f"matmul_precision={cfg.matmul_precision!r} is not honoured: "
+            "the port runs full-float32 GEMMs (K1 / K6 in 3xTF32), as for "
+            "'high' / 'highest'", stacklevel=3)
     if cfg.trace_impl not in ("slice", "c1"):
         # TPU rotate / unroll variants of the trace's contract (K9)
         warnings.warn(
@@ -132,9 +171,6 @@ class LODSolver:
             if not torch.cuda.is_available():
                 raise RuntimeError("device='cuda' asked for, but torch "
                                    "sees no CUDA device")
-            # JAX's f32 path ran bf16x3 matmuls; the port runs full f32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.problem = problem
         self.verbose = verbose
@@ -214,6 +250,7 @@ class LODSolver:
     # Right-hand side
     # ------------------------------------------------------------------
 
+    @_full_f32
     def assemble_fine_rhs(self):
         """Eliminated fine FEM right-hand side (reference LOD.cc:1050-
         1063): load vector minus the lifting of the Dirichlet data (the
@@ -285,6 +322,7 @@ class LODSolver:
                 self._t(sides, torch.bool))
         return self._inputs
 
+    @_full_f32
     def compute_basis(self, coefs=None):
         """Basis canvases ``self.Phi`` / ``self.APhi`` (P, canvas_n, C, C),
         chunk by chunk (``cfg.patch_chunk`` patches; 0 = all at once)."""
@@ -314,11 +352,13 @@ class LODSolver:
                 self.device, self.dtype)
         return stencil.stencil_build_cells(Phi, APhi, self._stencil_tables)
 
+    @_full_f32
     def assemble_coarse_operator(self):
         """A_LOD as a stencil (P, S, C, C) from ``self.Phi`` / ``APhi``."""
         self.A_stencil = self._stencil_build(self.Phi, self.APhi)
         return self.A_stencil
 
+    @_full_f32
     def coarse_dense_matrix(self, A_st):
         if self._placement is None:
             self._placement = stencil.dense_placement(
@@ -347,6 +387,7 @@ class LODSolver:
         f_at = basis.rhs_windows(self.cfg, self.grid, fem_rhs)
         return torch.einsum("pncd,pnc->pd", Phi, f_at)
 
+    @_full_f32
     def solve_coarse(self):
         """Coarse LOD solve (reference LOD.cc:976-1002): rhs = C^T f, then
         CG with Jacobi on the coarse operator."""
@@ -358,6 +399,7 @@ class LODSolver:
         self.coarse_cg = res
         return res.x
 
+    @_full_f32
     def prolong_lod_solution(self):
         """lod_solution = C u + g: the u-weighted basis canvases scattered
         onto the fine grid (reference LOD.cc:1251) plus the Dirichlet
@@ -385,15 +427,16 @@ class LODSolver:
         covering basis construction -> coarse-operator assembly -> CG.
         The step also leaves ``Phi``, ``APhi``, ``A_stencil``,
         ``coarse_solution`` and ``coarse_cg`` on the solver, so that
-        ``prolong_lod_solution`` can follow it."""
+        ``prolong_lod_solution`` can follow it.  On the card the step, as
+        every public stage, runs under ``full_f32_matmuls``."""
         if mesh is not None:
             _not_ported("build_step(mesh=...) (patch-axis sharding)", "13")
+        return self._step
 
-        def step(coefs, fem_rhs):
-            Phi, _ = self.compute_basis(coefs)
-            A_st = self.assemble_coarse_operator()
-            res = self._coarse_cg(A_st, self._coarse_rhs(Phi, fem_rhs))
-            self.coarse_solution, self.coarse_cg = res.x, res
-            return res.x, A_st
-
-        return step
+    @_full_f32
+    def _step(self, coefs, fem_rhs):
+        Phi, _ = self.compute_basis(coefs)
+        A_st = self.assemble_coarse_operator()
+        res = self._coarse_cg(A_st, self._coarse_rhs(Phi, fem_rhs))
+        self.coarse_solution, self.coarse_cg = res.x, res
+        return res.x, A_st

@@ -140,26 +140,74 @@ def test_split_on_k6_leaves_matches_plain(cuda):
     assert rel(X, Xr) <= 1e-10 and rel(T, Tr) <= 1e-10
 
 
-@pytest.mark.parametrize("dim, C", [(3, 1), (2, 2), (3, 3)])
-def test_k3_k7_match_plain(cuda, dim, C):
-    """K3 (C = 1) and K7 (C = 2, 3) on a 7^dim canvas."""
-    rng = np.random.default_rng(2 + C)
-    dims = np.full(dim, 7)
+def _trace_inputs(rng, dims, C, B, k, dtype):
+    """band (B, nN, 3^dim C^2) and Xp (B, C, nN + 2 shiftN, k) on a canvas
+    of ``dims`` nodes per axis (x fastest), the stencil offsets in the
+    port's order and the shift."""
+    dims = np.asarray(dims)
     strides = np.concatenate([[1], np.cumprod(dims[:-1])])
     offs = tuple(int(o) for o in
-                 (cartesian_coords(np.full(dim, 3)) - 1) @ strides)
+                 (cartesian_coords(np.full(len(dims), 3)) - 1) @ strides)
     shiftN, nN = int(strides.sum()), int(dims.prod())
     band = torch.from_numpy(rng.standard_normal(
-        (3, nN, 3 ** dim * C * C))).to(cuda)
+        (B, nN, 3 ** len(dims) * C * C)))
     Xp = torch.nn.functional.pad(
-        torch.from_numpy(rng.standard_normal((3, C, nN, 20))),
-        (0, 0, shiftN, shiftN)).to(cuda)
+        torch.from_numpy(rng.standard_normal((B, C, nN, k))),
+        (0, 0, shiftN, shiftN))
+    return band.to(dtype), Xp.to(dtype), shiftN, offs
+
+
+def _trace_gate(dtype, band, Xp, shiftN, offs, ref):
+    """float64 within 1e-12 of the float64 plain version; float32 within
+    4x the float32 plain version's own error + 1e-6."""
+    if dtype == torch.float64:
+        return 1e-12
+    return 4 * rel(assembly.stencil_trace_plain(band, Xp, shiftN, offs)
+                   .double(), ref) + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 3, 20, 125])
+@pytest.mark.parametrize("dim, C, n", [(3, 1, 7), (2, 2, 7), (3, 3, 7),
+                                       (3, 1, 11), (3, 3, 11), (2, 2, 37)])
+def test_k3_k7_match_plain(cuda, dim, C, n, k, dtype):
+    """K3 (C = 1) and K7 (C = 2, 3) on an n^dim canvas (7^3 and 11^3 = 1331
+    nodes, 37^2 = 1369: none a multiple of the 64-node tile; 11^3 is the
+    main path's, shiftN 133), k on both sides of the per-output routine's
+    threshold (16: the A phi calls' k = C) and at the main path's 125."""
+    rng = np.random.default_rng(2 + C + n + k)
+    band, Xp, shiftN, offs = _trace_inputs(rng, (n,) * dim, C, 2, k,
+                                           torch.float64)
+    ref = assembly.stencil_trace_plain(band.to(cuda), Xp.to(cuda), shiftN,
+                                       offs)
+    band, Xp = band.to(cuda, dtype), Xp.to(cuda, dtype)
     kernels.reset_launch_counts()
     S = assembly.stencil_trace(band, Xp, shiftN, offs)
     assert kernels.launches["K3 stencil_trace" if C == 1
                             else "K7 stencil_trace"] == 1
-    assert rel(S, assembly.stencil_trace_plain(band, Xp, shiftN,
-                                               offs)) <= 1e-12
+    assert S.dtype == dtype and S.shape == ref.shape
+    assert rel(S.double(), ref) <= _trace_gate(dtype, band, Xp, shiftN,
+                                               offs, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("C", [1, 3])
+def test_k3_k7_any_offset_order(cuda, C, dtype):
+    """Offsets that do not come as dx-triples (the stencil's order shuffled,
+    band columns with them) take the per-output routine at k = 125."""
+    rng = np.random.default_rng(40 + C)
+    band, Xp, shiftN, offs = _trace_inputs(rng, (9, 8, 7), C, 3, 125,
+                                           torch.float64)
+    perm = rng.permutation(len(offs))
+    offs = tuple(offs[i] for i in perm)
+    band = band.reshape(3, band.shape[1], len(perm), C * C)[:, :, perm]
+    band = band.reshape(3, band.shape[1], -1).contiguous()
+    ref = assembly.stencil_trace_plain(band.to(cuda), Xp.to(cuda), shiftN,
+                                       offs)
+    band, Xp = band.to(cuda, dtype), Xp.to(cuda, dtype)
+    S = assembly.stencil_trace(band, Xp, shiftN, offs)
+    assert rel(S.double(), ref) <= _trace_gate(dtype, band, Xp, shiftN,
+                                               offs, ref)
 
 
 def _k5_inputs(rng, B, n, deficient):
