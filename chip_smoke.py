@@ -19,15 +19,19 @@ Phases (each prints its numbers; any failure exits non-zero):
    in float64 (relative max error <= 1e-10) and float32 (error against
    the f64 plain version <= 4x the f32 plain version's own error + 1e-6);
    K4 on the real subspace iterate is held to its contract
-   (orthonormality, span), elementwise on a well-conditioned block.  Each
-   is timed with CUDA events beside its plain version, one PyTorch
-   library call computing the same function where there is one, and its
-   bound (the larger of FLOPs at 67 TFLOP/s and bytes at 3.35 TB/s, the
-   H100 SXM's float32 and HBM peaks); K1 and K6, which multiply on the
-   tensor cores, also get that bound with the FLOPs at the 165 TFLOP/s of
-   a 3xTF32 product, K1 is held against the plain blocked version that
-   sums in the kernel's order, and its float32 gate, and K3's, is read
-   on every chunk of the configuration, not only on the first.  K3's and
+   (orthonormality, span), elementwise on a well-conditioned block
+   (against the plain version and its twin in the kernel's order), and
+   also at the float64 main step's shape (k = 124, the columns in shared
+   memory).  Each is timed with CUDA events beside its plain version, one
+   PyTorch library call computing the same function where there is one,
+   and its bound (the larger of FLOPs at 67 TFLOP/s, or 34 TFLOP/s for a
+   float64 row whose kernel multiplies on the CUDA cores, and bytes at
+   3.35 TB/s: the H100 SXM's float32 / float64 and HBM peaks); K1 and K6,
+   which multiply on the tensor cores, also get that bound with the FLOPs
+   at the 165 TFLOP/s of a 3xTF32 product, K1 is held against the plain
+   blocked version that sums in the kernel's order, and its float32 gate,
+   and K3's, is read on every chunk of the configuration, not only on the
+   first.  K3's and
    K7's library call is ``torch.sparse.mm`` (cuSPARSE SpMM) with the
    trace as a block-diagonal CSR matrix of the band.  Each row also
    gives the kernel's device time (the calls queued behind a spin kernel,
@@ -60,8 +64,9 @@ Phases (each prints its numbers; any failure exits non-zero):
    l=2, s=2, coef_refinement=5, float32, chunks of 128,
    ``eig_solver="auto"`` = smallk on the card): one first call and 2 timed
    calls, every kernel launched, finite non-zero u, converged CG; then the
-   same step in float64 (``eig_solver="smallk"``), prolonged fields within
-   1e-2;
+   same step in float64 (``eig_solver="smallk"``, the ``main-f64`` path:
+   one first call and 1 timed call, its launches counted), prolonged
+   fields within 1e-2;
 8. weig: the main configuration with ``smallk_weig=True`` (K8): one
    first call and one timed call, prolonged field within 1e-2 of main's
    float64 field;
@@ -74,9 +79,10 @@ Phases (each prints its numbers; any failure exits non-zero):
    prolonged fields within 1e-2.
 
 Every path counts its kernel launches from 0, set just before its first
-call and read just after its last.  The second-to-last line is the JSON
-kernel table, the last line ``{"ok": true, "device": {...}}``.  No JAX is
-imported.
+call and read just after its last; each K4 row's device time per step of
+its path (launches x device ms) is printed.  The second-to-last line is
+the JSON kernel table, the last line ``{"ok": true, "device": {...}}``.  No
+JAX is imported.
 """
 
 from __future__ import annotations
@@ -92,6 +98,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "el-kernels", "e2e-f64", "jacobi",
           "main", "weig", "elasticity")
 PEAK_FLOPS = 67e12          # H100 SXM float32, outside the tensor cores
+PEAK_FLOPS_F64 = 34e12      # H100 SXM float64, outside the tensor cores
 PEAK_FLOPS_3XTF32 = 165e12  # H100 SXM TF32 tensor cores, 495e12 / 3 products
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 # kernel -> (source, replaced Pallas call, path whose run counts it)
@@ -128,6 +135,8 @@ PATH_KERNELS = {
     "elasticity": _ELASTIC,
     "elasticity-r3-f32": _ELASTIC,
     "elasticity-r3-f64": _ELASTIC,
+    "main-f64": ("K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace",
+                 "K4 mgs_qr", "K5 jacobi_eigh"),
 }
 
 
@@ -386,6 +395,40 @@ def qr_contract_err(Q, X):
     return max(orth, span)
 
 
+def k4_block_check(name, X_wc, X_real, f32=True):
+    """K4 elementwise: on the well-conditioned block X_wc (float64) within
+    1e-10 of the plain version (and, where this checkout has it, of the
+    plain twin that sums in the kernel's order), and in float32 (unless
+    ``f32`` is False) within 4x the plain float32 version's error + 1e-6 of
+    the float64 plain version; on the real iterate X_real (float64), whose
+    columns span decades, the elementwise float64 differences are printed
+    (the row's contract check holds it)."""
+    from dealii_slod_tpu_torch.ops import eig
+    twin = getattr(eig, "mgs_qr_panel_plain", None)
+    if X_wc.shape[1] > 384:
+        twin = None                       # the kernel's generic route
+    ref = eig.mgs_qr_plain(X_wc)
+    Q = eig.mgs_qr(X_wc)
+    e64 = rel(Q, ref)
+    e_twin = None if twin is None else rel(Q, twin(X_wc))
+    ok = e64 <= 1e-10 and (e_twin is None or e_twin <= 1e-10)
+    msg = (f"f64 err {e64:.3e} (<= 1e-10), against the kernel-order twin "
+           + ("-" if e_twin is None else f"{e_twin:.3e}"))
+    if f32:
+        e32 = rel(eig.mgs_qr(X_wc.float()), ref)
+        base32 = rel(eig.mgs_qr_plain(X_wc.float()), ref)
+        ok = ok and e32 <= 4 * base32 + 1e-6
+        msg += (f", f32 err {e32:.3e} vs plain-f32 {base32:.3e} (bound "
+                f"{4 * base32 + 1e-6:.3e})")
+    Qr = eig.mgs_qr(X_real)
+    real = f"{rel(Qr, eig.mgs_qr_plain(X_real)):.3e}"
+    if twin is not None:
+        real += f", against the twin {rel(Qr, twin(X_real)):.3e}"
+    print(f"[kernels] {name} on a well-conditioned X {tuple(X_wc.shape)}: "
+          f"{msg}: {ok}; on the real iterate, f64 elementwise {real}")
+    check(ok, f"{name} disagrees with its plain version")
+
+
 def by(flops, nbytes, peak=PEAK_FLOPS):
     """The bound (ms, what bounds it) of work of ``flops`` operations
     moving ``nbytes`` bytes."""
@@ -393,14 +436,14 @@ def by(flops, nbytes, peak=PEAK_FLOPS):
     return (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
 
 
-def sweeps_bound(G, sweeps, tol, extra_flops, nbytes):
+def sweeps_bound(G, sweeps, tol, extra_flops, nbytes, peak=PEAK_FLOPS):
     """K5's / K8's bound with the sweeps this input needs under the
-    per-matrix stop."""
+    per-matrix stop (FLOPs at ``peak``)."""
     from dealii_slod_tpu_torch.ops import eig
     c = jacobi_sweep_counts(G, sweeps, tol, eig._default_null_rel(G.dtype))
     print(f"[kernels]   sweeps per matrix on the {str(G.dtype)[6:]} input: "
           f"mean {float(c.double().mean()):.2f}, max {int(c.max())}")
-    return by(extra_flops + sweep_flops(c, G.shape[-1]), nbytes)
+    return by(extra_flops + sweep_flops(c, G.shape[-1]), nbytes, peak)
 
 
 def k5_sweep_report(name, make, sweeps, tol, dtypes=("float32", "float64")):
@@ -762,15 +805,7 @@ def phase_kernels(card):
         if name == "K4 mgs_qr":
             # the real iterate's columns span decades: hold Q to its
             # contract there, elementwise on a well-conditioned block
-            ref_wc = eig.mgs_qr_plain(X_wc)
-            e_wc = rel(eig.mgs_qr(X_wc), ref_wc)
-            e_wc32 = rel(eig.mgs_qr(X_wc.float()), ref_wc)
-            base_wc32 = rel(eig.mgs_qr_plain(X_wc.float()), ref_wc)
-            ok_wc = e_wc <= 1e-10 and e_wc32 <= 4 * base_wc32 + 1e-6
-            print(f"[kernels] {name} on a well-conditioned X: f64 err "
-                  f"{e_wc:.3e} (<= 1e-10), f32 err {e_wc32:.3e} vs plain-f32 "
-                  f"{base_wc32:.3e}: {ok_wc}")
-            check(ok_wc, f"{name} disagrees with its plain version")
+            k4_block_check(name, X_wc, X_it)
         check_case(table, card, name, shape, make, kern, plain, err, bound,
                    lib, path="jacobi" if name.endswith("[jacobi route]")
                    else None,
@@ -793,6 +828,26 @@ def phase_kernels(card):
                   f"plain version, f64: {e_b:.3e} (<= 1e-10)")
             check(e_b <= 1e-10, f"{name} disagrees with the blocked plain "
                   "version")
+
+    # K4 on the float64 main path: every direction but one (k = 124), the
+    # float64 jitter, the columns in shared memory
+    k64 = basis.smallk_k_eff(cD, torch.float64, s.cfg.smallk_dirs)
+    k64 -= k64 % 2
+    Gj64 = G + (1e-13 * torch.where(dmax > 0, dmax, 1.0))[..., None] * eye
+    X_it64 = patch_solve.gj_inverse_plain(Gj64) @ eig.smallk_start(
+        cD, k64, G.dtype, G.device).expand(B, cD, k64)
+    del Gj64
+    name = "K4 mgs_qr [f64 main]"
+    k4_block_check(name, torch.as_tensor(
+        np.random.default_rng(2).standard_normal((B, cD, k64))
+        * np.logspace(0, -5, k64), device="cuda"), X_it64, f32=False)
+    check_case(
+        table, card, name, f"X ({B}, {cD}, {k64}) = Ginv Z0, f64 path",
+        lambda dt: (X_it64.to(dt),), eig.mgs_qr, eig.mgs_qr_plain, None,
+        lambda a: by(B * 4 * cD * k64 * k64, B * 8 * 2 * cD * k64,
+                     PEAK_FLOPS_F64),
+        lambda x: torch.linalg.qr(x), path="main-f64", time_dtype="float64",
+        f32=False, contract=lambda q, a: qr_contract_err(q, a[0]))
     return table
 
 
@@ -946,6 +1001,9 @@ def phase_el_kernels(card):
         patch_solve.gj_inverse_plain, rel,
         lambda a: by(BC * 2 * m ** 3, BC * f4 * 2 * m * m),
         lambda a: torch.linalg.inv(a), path="elasticity")
+    k4_block_check("K4 mgs_qr [elasticity]", torch.as_tensor(
+        np.random.default_rng(3).standard_normal((BC, cD, k32))
+        * np.logspace(0, -5, k32), device="cuda"), X_it)
     check_case(
         table, card, "K4 mgs_qr [elasticity]",
         f"X ({BC}, {cD}, {k32}) = Ginv Z0",
@@ -968,19 +1026,15 @@ def phase_el_kernels(card):
           and rows("K5", torch.float64, "slod_jacobi_rows", k64) == "global",
           f"the float64 elasticity smallk shapes (n {cD}, k {k64}) took "
           "the shared-memory rows")
-    X_wc = torch.as_tensor(np.random.default_rng(1).standard_normal(
-        (BC, cD, k64)) * np.logspace(0, -3, k64), device="cuda")
-    e_wc = rel(eig.mgs_qr(X_wc), eig.mgs_qr_plain(X_wc))
-    print(f"[kernels] K4 mgs_qr [global rows] on a well-conditioned X "
-          f"({BC}, {cD}, {k64}): f64 err {e_wc:.3e} (<= 1e-10)")
-    check(e_wc <= 1e-10, "K4 on global rows disagrees with its plain "
-          "version")
-    del X_wc
+    k4_block_check("K4 mgs_qr [global rows]", torch.as_tensor(
+        np.random.default_rng(1).standard_normal((BC, cD, k64))
+        * np.logspace(0, -3, k64), device="cuda"), X_it, f32=False)
     check_case(
         table, card, "K4 mgs_qr [global rows]",
         f"X ({BC}, {cD}, {k64}) = Ginv Z0, f64 path",
         lambda dt: (X_it.to(dt),), eig.mgs_qr, eig.mgs_qr_plain, None,
-        lambda a: by(BC * 4 * cD * k64 * k64, BC * f8 * 2 * cD * k64),
+        lambda a: by(BC * 4 * cD * k64 * k64, BC * f8 * 2 * cD * k64,
+                     PEAK_FLOPS_F64),
         lambda x: torch.linalg.qr(x), path="elasticity-r3-f64",
         time_dtype="float64", f32=False,
         contract=lambda q, a: qr_contract_err(q, a[0]))
@@ -994,7 +1048,8 @@ def phase_el_kernels(card):
         table, card, "K5 jacobi_eigh [global rows]",
         f"W ({nsel} of {BC}, {k64}, {k64}), f64 path",
         lambda dt: (W.to(dt).contiguous(),), k5, k5_plain, k5_err,
-        lambda a: sweeps_bound(a[0], sw, st, 0, nsel * f8 * 2 * k64 * k64),
+        lambda a: sweeps_bound(a[0], sw, st, 0, nsel * f8 * 2 * k64 * k64,
+                               PEAK_FLOPS_F64),
         lambda w: torch.linalg.eigh(w), path="elasticity-r3-f64",
         time_dtype="float64", f32=False, kernel_fn=k5_rows)
     k5_sweep_report("K5 jacobi_eigh [global rows]", W.to, sw, st,
@@ -1136,7 +1191,8 @@ def phase_jacobi(profile=False):
 
 
 def phase_main(profile=False):
-    import torch
+    """The main path in float32, then the same step in float64 (the
+    ``main-f64`` path: K4 at k = 124, its columns in shared memory)."""
     s, out = run_path("main", bench_cfg("float32"), timed=2,
                       profile=profile)
     check(s.spec_mode == "smallk",
@@ -1144,20 +1200,17 @@ def phase_main(profile=False):
     check(s.solver_mode == "fused",
           f"patch_solver='auto' resolved to {s.solver_mode!r}, not 'fused'")
     f32 = s.prolong_lod_solution().double().cpu()
-
-    s64 = make_solver(bench_cfg("float64", eig_solver="smallk"), False)
-    s64.assemble_fine_rhs()
-    t0 = time.perf_counter()
-    s64.build_step()(s64.coef_q, s64.fem_rhs)
-    torch.cuda.synchronize()
-    t64 = time.perf_counter() - t0
+    del s
+    s64, out64 = run_path("main-f64", bench_cfg("float64",
+                                                eig_solver="smallk"), timed=1)
     f64 = s64.prolong_lod_solution().cpu()
     e = rel(f32, f64)
-    print(f"[main] f64 smallk step {t64:.3f} s, CG "
+    print(f"[main] f64 smallk step {out64['steady_wall_s']:.3f} s (first "
+          f"call {out64['first_call_s']:.3f} s), CG "
           f"{int(s64.coarse_cg.n_iter)} it; prolonged f32 vs f64 rel max "
           f"diff {e:.3e} (<= 1e-2)")
     check(e <= 1e-2, "f32 and f64 prolonged fields disagree")
-    return out, f64
+    return out, out64, f64
 
 
 def phase_weig(f64, profile=False):
@@ -1245,7 +1298,7 @@ def main():
             paths["jacobi"] = phase_jacobi(args.profile)
         f64 = None
         if "main" in phases:
-            paths["main"], f64 = phase_main(args.profile)
+            paths["main"], paths["main-f64"], f64 = phase_main(args.profile)
         if "weig" in phases and f64 is not None:
             paths["weig"] = phase_weig(f64, args.profile)
         if "elasticity" in phases:
@@ -1261,6 +1314,11 @@ def main():
                    for p, out in paths.items() if out is not None}
         row["launches"] = by_path.get(row["path"], 0)
         row["launches_by_path"] = by_path
+        if row["kernel"] == "K4 mgs_qr" and row["path"] in paths:
+            per = paths[row["path"]]["per_step"].get(row["kernel"], 0)
+            print(f"[K4] {row['name']}: device time per {row['path']} step "
+                  f"{per:g} x {row['device_ms']:.4f} ms = "
+                  f"{per * row['device_ms']:.3f} ms [{card}]")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",

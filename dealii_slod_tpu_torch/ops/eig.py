@@ -266,13 +266,57 @@ def mgs_qr_plain(X: torch.Tensor) -> torch.Tensor:
     return Q
 
 
+MGS_PANEL = 32          # K4's panel width (csrc/mgs_qr.cu: PANEL)
+
+
+def mgs_qr_panel_plain(X: torch.Tensor, panel: int = MGS_PANEL):
+    """K4's order of operations at n <= 384 on tensors: the same two MGS
+    passes as ``mgs_qr_plain``, each column receiving q_0 .. q_{j-1} in
+    order, with the columns taken in panels of ``panel``.  Inside a panel
+    step j forms the Gram row s_i = x_i . x_j (i >= j), rs = rsqrt(s_jj +
+    1e-30), and subtracts (s_ij rs) rs x_j from each later column of the
+    panel; x_j becomes q_j = x_j rs when the panel ends.  The columns after
+    the panel then receive the panel's q's one by one, each as x_i . q_j
+    and a subtraction."""
+    Q = X.clone()
+    k = Q.shape[-1]
+    for _ in range(2):
+        for p0 in range(0, k, panel):
+            p1 = min(p0 + panel, k)
+            scale = []
+            for j in range(p0, p1):
+                xj = Q[:, :, j:j + 1]
+                s = (Q[:, :, j:p1] * xj).sum(1, keepdim=True)
+                rs = torch.rsqrt(s[:, :, :1] + 1e-30)
+                scale.append(rs)
+                Q[:, :, j + 1:p1] -= ((s[:, :, 1:] * rs) * rs) * xj
+            Q[:, :, p0:p1] *= torch.cat(scale, dim=2)
+            if p1 < k:
+                for j in range(p0, p1):
+                    q = Q[:, :, j:j + 1]
+                    coef = (Q[:, :, p1:] * q).sum(1, keepdim=True)
+                    Q[:, :, p1:] -= coef * q
+    return Q
+
+
 def mgs_qr(X: torch.Tensor) -> torch.Tensor:
     """Kernel K4 (replaces ``dealii_slod_tpu/ops/eig.py: mgs_qr_pallas``):
     the thin Q of X (B, n, k) by two-pass modified Gram-Schmidt, the same
     contract as a Householder thin Q up to column signs and the completion
     of a rank-deficient block (a null column gives a zero column).  On CUDA
-    one CTA holds each matrix's k columns, in shared memory where they fit
-    and in a global workspace otherwise (the kernel's size rule)."""
+    one CTA per matrix, a warp holding a block of rows, a lane one column
+    of it (four in the float32 chain at n = 375).
+    For k <= 32 (the float32 paths) it is bound by the 2k-step chain: the
+    columns stay in registers and a step is one CTA-wide sum of the Gram
+    row (one barrier), so what costs is each step's latency and, at
+    n = 375, the pivot column's delivery from shared memory.  For k > 32
+    (float64 keeps every direction) it is bound by FLOPs and the reads of
+    q: each pass runs that chain on panels of 32 columns, then updates
+    every later column once per panel (by the whole CTA at n <= 128, by
+    each warp on its own columns beyond); the columns sit in shared memory
+    where they fit and in a global workspace otherwise (the kernel's size
+    rule).  At n <= 384 the kernel sums in ``mgs_qr_panel_plain``'s order;
+    beyond, a warp per later column and step in ``mgs_qr_plain``'s."""
     if not X.is_cuda:
         return mgs_qr_plain(X)
     B, n, k = X.shape

@@ -336,17 +336,48 @@ def test_k5_converged_matches_plain(cuda):
     assert float((V.cpu() * sgn - V_r).abs().max()) <= 1e-8
 
 
-@pytest.mark.parametrize("k", [32, 124])
-def test_k4_matches_plain(cuda, k):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n, k", [
+    (125, 32), (125, 124),                     # the existing cases
+    (125, 22), (375, 22), (375, 32),           # the chain in registers
+    (125, 33), (125, 125),                     # panels, columns in shared
+    (375, 33), (375, 124), (375, 374), (375, 375),  # panels, global columns
+    (500, 40)])                                # n > 384: the generic route
+def test_k4_matches_plain(cuda, n, k, dtype):
     """MGS2 on a well-conditioned block (columns scaled by
-    logspace(0, -5)): the same arithmetic in another summation order."""
+    logspace(0, -5)): the same arithmetic in another summation order.
+    float64 within 1e-10 of the plain version and, at n <= 384, of its
+    twin in the kernel's order; float32 within 4x the plain float32
+    version's error + 1e-6 of the plain float64 one."""
     rng = np.random.default_rng(k)
-    X = torch.from_numpy(rng.standard_normal((6, 125, k))
+    X = torch.from_numpy(rng.standard_normal((6, n, k))
                          * np.logspace(0, -5, k))
     X[1, :, 4] = 0.0                         # a null column stays zero
-    Q = eig.mgs_qr(X.to(cuda)).cpu()
-    assert rel(Q, eig.mgs_qr_plain(X)) <= 1e-10
+    kernels.reset_launch_counts()
+    Q = eig.mgs_qr(X.to(cuda, dtype)).cpu()
+    assert kernels.launches["K4 mgs_qr"] == 1
+    ref = eig.mgs_qr_plain(X)
+    err = rel(Q.double(), ref)
+    plain_err = rel(eig.mgs_qr_plain(X.to(cuda, dtype)).cpu().double(), ref)
+    assert err <= _gate(dtype, plain_err), (err, plain_err)
+    if dtype == torch.float64 and n <= 384:
+        assert rel(Q, eig.mgs_qr_panel_plain(X)) <= 1e-10
     assert bool((Q[1, :, 4] == 0).all())
+
+
+@pytest.mark.parametrize("n, k", [(125, 124), (375, 374)])
+def test_k4_null_columns_across_panels(cuda, n, k):
+    """Null columns in the first panel, on a panel boundary and in the last
+    panel stay exactly zero (float64, columns in shared memory and in the
+    global workspace)."""
+    rng = np.random.default_rng(n)
+    X = torch.from_numpy(rng.standard_normal((2, n, k))
+                         * np.logspace(0, -5, k))
+    null = [3, 32, k - 1]
+    X[:, :, null] = 0.0
+    Q = eig.mgs_qr(X.to(cuda)).cpu()
+    assert bool((Q[:, :, null] == 0).all())
+    assert rel(Q, eig.mgs_qr_panel_plain(X)) <= 1e-10
 
 
 def test_k4_k5_global_rows_match_plain(cuda):
