@@ -24,14 +24,15 @@ Phases (each prints its numbers; any failure exits non-zero):
    also at the float64 main step's shape (k = 124, the columns in shared
    memory).  Each is timed with CUDA events beside its plain version, one
    PyTorch library call computing the same function where there is one,
-   and its bound (the larger of FLOPs at 67 TFLOP/s, or 34 TFLOP/s for a
-   float64 row whose kernel multiplies on the CUDA cores, and bytes at
-   3.35 TB/s: the H100 SXM's float32 / float64 and HBM peaks); K1 and K6,
-   which multiply on the tensor cores, also get that bound with the FLOPs
-   at the 165 TFLOP/s of a 3xTF32 product, K1 is held against the plain
-   blocked version that sums in the kernel's order, and its float32 gate,
-   and K3's, is read on every chunk of the configuration, not only on the
-   first.  K3's and
+   and its bound (the larger of FLOPs at 67 TFLOP/s and bytes at 3.35
+   TB/s: the H100 SXM's float32 peak outside the tensor cores, its
+   float64 peak on them, and its HBM peak); K1 and K6, which multiply on
+   the tensor cores, also get that bound with the FLOPs at the 165
+   TFLOP/s of a 3xTF32 product, the float64 rows of K4 and K5, which
+   multiply on the CUDA cores, with the FLOPs at their 34 TFLOP/s; K1 is
+   held against the plain blocked version that sums in the kernel's
+   order, and its float32 gate, and K3's, is read on every chunk of the
+   configuration, not only on the first.  K3's and
    K7's library call is ``torch.sparse.mm`` (cuSPARSE SpMM) with the
    trace as a block-diagonal CSR matrix of the band.  Each row also
    gives the kernel's device time (the calls queued behind a spin kernel,
@@ -97,10 +98,16 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "el-kernels", "e2e-f64", "jacobi",
           "main", "weig", "elasticity")
-PEAK_FLOPS = 67e12          # H100 SXM float32, outside the tensor cores
-PEAK_FLOPS_F64 = 34e12      # H100 SXM float64, outside the tensor cores
-PEAK_FLOPS_3XTF32 = 165e12  # H100 SXM TF32 tensor cores, 495e12 / 3 products
+# H100 SXM: float32 outside the tensor cores, float64 on them (DMMA)
+PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+# second bounds beside ``bound_ms``: row key -> (FLOP/s, what runs at it)
+SECOND_PEAKS = {
+    # TF32 tensor cores, 495e12 / 3 products (K1, K6)
+    "bound_ms_3xtf32": (165e12, "165 TFLOP/s (3xTF32)"),
+    # float64 outside the tensor cores, where K4 and K5 multiply
+    "bound_ms_f64_cuda_cores": (34e12, "34 TFLOP/s (float64 CUDA cores)"),
+}
 # kernel -> (source, replaced Pallas call, path whose run counts it)
 SOURCE = {
     "K1 fused_spd_multirhs": ("dealii_slod_tpu_torch/csrc/patch_solve.cu",
@@ -397,35 +404,38 @@ def qr_contract_err(Q, X):
 
 def k4_block_check(name, X_wc, X_real, f32=True):
     """K4 elementwise: on the well-conditioned block X_wc (float64) within
-    1e-10 of the plain version (and, where this checkout has it, of the
-    plain twin that sums in the kernel's order), and in float32 (unless
-    ``f32`` is False) within 4x the plain float32 version's error + 1e-6 of
-    the float64 plain version; on the real iterate X_real (float64), whose
-    columns span decades, the elementwise float64 differences are printed
-    (the row's contract check holds it)."""
+    1e-10 of the plain version and of the plain twin that sums in the
+    kernel's order, and in float32 (unless ``f32`` is False) within 4x the
+    plain float32 version's error + 1e-6 of the float64 plain version.  On
+    the real iterate X_real (float64), whose columns span decades, the
+    elementwise float64 differences are printed (the row's contract check
+    holds it): the kernel against the plain version and against the twin,
+    and, as the input's own witness, the two plain versions against each
+    other (no kernel), also on the CPU on the first 8 matrices beside the
+    kernel's distance on those."""
     from dealii_slod_tpu_torch.ops import eig
-    twin = getattr(eig, "mgs_qr_panel_plain", None)
-    if X_wc.shape[1] > 384:
-        twin = None                       # the kernel's generic route
+    twin = eig.mgs_qr_panel_plain
     ref = eig.mgs_qr_plain(X_wc)
     Q = eig.mgs_qr(X_wc)
-    e64 = rel(Q, ref)
-    e_twin = None if twin is None else rel(Q, twin(X_wc))
-    ok = e64 <= 1e-10 and (e_twin is None or e_twin <= 1e-10)
+    e64, e_twin = rel(Q, ref), rel(Q, twin(X_wc))
+    ok = e64 <= 1e-10 and e_twin <= 1e-10
     msg = (f"f64 err {e64:.3e} (<= 1e-10), against the kernel-order twin "
-           + ("-" if e_twin is None else f"{e_twin:.3e}"))
+           f"{e_twin:.3e}")
     if f32:
         e32 = rel(eig.mgs_qr(X_wc.float()), ref)
         base32 = rel(eig.mgs_qr_plain(X_wc.float()), ref)
         ok = ok and e32 <= 4 * base32 + 1e-6
         msg += (f", f32 err {e32:.3e} vs plain-f32 {base32:.3e} (bound "
                 f"{4 * base32 + 1e-6:.3e})")
-    Qr = eig.mgs_qr(X_real)
-    real = f"{rel(Qr, eig.mgs_qr_plain(X_real)):.3e}"
-    if twin is not None:
-        real += f", against the twin {rel(Qr, twin(X_real)):.3e}"
+    Qr, Pr, Tr = eig.mgs_qr(X_real), eig.mgs_qr_plain(X_real), twin(X_real)
+    sub = X_real[:8].cpu()
+    ref_sub = eig.mgs_qr_plain(sub)
     print(f"[kernels] {name} on a well-conditioned X {tuple(X_wc.shape)}: "
-          f"{msg}: {ok}; on the real iterate, f64 elementwise {real}")
+          f"{msg}: {ok}; on the real iterate, f64 elementwise "
+          f"{rel(Qr, Pr):.3e}, against the twin {rel(Qr, Tr):.3e}, the "
+          f"twin against the plain version {rel(Tr, Pr):.3e} (no kernel); "
+          f"first 8 matrices: the kernel {rel(Qr[:8].cpu(), ref_sub):.3e}, "
+          f"the twin on the CPU {rel(twin(sub), ref_sub):.3e} (no kernel)")
     check(ok, f"{name} disagrees with its plain version")
 
 
@@ -436,14 +446,14 @@ def by(flops, nbytes, peak=PEAK_FLOPS):
     return (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
 
 
-def sweeps_bound(G, sweeps, tol, extra_flops, nbytes, peak=PEAK_FLOPS):
+def sweeps_bound(G, sweeps, tol, extra_flops, nbytes):
     """K5's / K8's bound with the sweeps this input needs under the
-    per-matrix stop (FLOPs at ``peak``)."""
+    per-matrix stop."""
     from dealii_slod_tpu_torch.ops import eig
     c = jacobi_sweep_counts(G, sweeps, tol, eig._default_null_rel(G.dtype))
     print(f"[kernels]   sweeps per matrix on the {str(G.dtype)[6:]} input: "
           f"mean {float(c.double().mean()):.2f}, max {int(c.max())}")
-    return by(extra_flops + sweep_flops(c, G.shape[-1]), nbytes, peak)
+    return by(extra_flops + sweep_flops(c, G.shape[-1]), nbytes)
 
 
 def k5_sweep_report(name, make, sweeps, tol, dtypes=("float32", "float64")):
@@ -543,15 +553,15 @@ def check_case(table, card, name, shape, make, kern, plain, err, bound, lib,
                       bound_by=bound_by, library_ms=library_ms, **extra))
 
 
-def tensor_core_bound(row, card, flops, nbytes):
-    """K1 / K6 multiply on the tensor cores: beside the bound every row
-    has (FLOPs at the CUDA cores' 67 TFLOP/s), the same work's bound with
-    the FLOPs at the 165 TFLOP/s of a 3xTF32 product, put into the row
-    just added."""
-    ms, what = by(flops, nbytes, PEAK_FLOPS_3XTF32)
-    row["bound_ms_3xtf32"] = ms
-    print(f"[kernels] {row['name']}: bound at 165 TFLOP/s (3xTF32) "
-          f"{ms:.4f} ms ({what}; {100 * ms / row['ms']:.2f}% of it) [{card}]")
+def second_bound(row, card, flops, nbytes, key):
+    """Beside the bound every row has (FLOPs at 67 TFLOP/s), the same
+    work's bound with the FLOPs at the peak ``SECOND_PEAKS[key]`` of the
+    units the kernel multiplies on, put into the row just added."""
+    peak, label = SECOND_PEAKS[key]
+    ms, what = by(flops, nbytes, peak)
+    row[key] = ms
+    print(f"[kernels] {row['name']}: bound at {label} {ms:.4f} ms ({what}; "
+          f"{100 * ms / row['ms']:.2f}% of it) [{card}]")
 
 
 def trace_operand(tab, X):
@@ -817,7 +827,7 @@ def phase_kernels(card):
         elif name == "K5 jacobi_eigh [jacobi route]":
             k5_sweep_report(name, factor_rows, tab.sweeps, tab.eig_tol)
         if name == "K1 fused_spd_multirhs":
-            tensor_core_bound(table[-1], card, *k1_work)
+            second_bound(table[-1], card, *k1_work, "bound_ms_3xtf32")
             f32_gate_all_chunks(s, tab, name)
             # the kernel's order of summation on tensors: a wrong panel
             # would show here as well as against the Cholesky solve
@@ -841,13 +851,14 @@ def phase_kernels(card):
     k4_block_check(name, torch.as_tensor(
         np.random.default_rng(2).standard_normal((B, cD, k64))
         * np.logspace(0, -5, k64), device="cuda"), X_it64, f32=False)
+    k4_work = (B * 4 * cD * k64 * k64, B * 8 * 2 * cD * k64)
     check_case(
         table, card, name, f"X ({B}, {cD}, {k64}) = Ginv Z0, f64 path",
         lambda dt: (X_it64.to(dt),), eig.mgs_qr, eig.mgs_qr_plain, None,
-        lambda a: by(B * 4 * cD * k64 * k64, B * 8 * 2 * cD * k64,
-                     PEAK_FLOPS_F64),
-        lambda x: torch.linalg.qr(x), path="main-f64", time_dtype="float64",
-        f32=False, contract=lambda q, a: qr_contract_err(q, a[0]))
+        lambda a: by(*k4_work), lambda x: torch.linalg.qr(x),
+        path="main-f64", time_dtype="float64", f32=False,
+        contract=lambda q, a: qr_contract_err(q, a[0]))
+    second_bound(table[-1], card, *k4_work, "bound_ms_f64_cuda_cores")
     return table
 
 
@@ -914,7 +925,8 @@ def phase_el_kernels(card):
             patch_solve.spd_multirhs_solve_plain, rel,
             lambda a_, n=n, k=k: by(*k6_work(n, k)),
             lambda a, b: torch.linalg.solve(a, b))
-        tensor_core_bound(table[-1], card, *k6_work(n, k))
+        second_bound(table[-1], card, *k6_work(n, k),
+                     "bound_ms_3xtf32")
     del leaves
     f32_gate_all_chunks(s, tab, "K6 spd_multirhs_solve")
     k7_lib = trace_spmm(band.float(), nNp, tab.shiftN, tab.offs_flat)
@@ -1029,29 +1041,32 @@ def phase_el_kernels(card):
     k4_block_check("K4 mgs_qr [global rows]", torch.as_tensor(
         np.random.default_rng(1).standard_normal((BC, cD, k64))
         * np.logspace(0, -3, k64), device="cuda"), X_it, f32=False)
+    k4_work = (BC * 4 * cD * k64 * k64, BC * f8 * 2 * cD * k64)
     check_case(
         table, card, "K4 mgs_qr [global rows]",
         f"X ({BC}, {cD}, {k64}) = Ginv Z0, f64 path",
         lambda dt: (X_it.to(dt),), eig.mgs_qr, eig.mgs_qr_plain, None,
-        lambda a: by(BC * 4 * cD * k64 * k64, BC * f8 * 2 * cD * k64,
-                     PEAK_FLOPS_F64),
-        lambda x: torch.linalg.qr(x), path="elasticity-r3-f64",
-        time_dtype="float64", f32=False,
+        lambda a: by(*k4_work), lambda x: torch.linalg.qr(x),
+        path="elasticity-r3-f64", time_dtype="float64", f32=False,
         contract=lambda q, a: qr_contract_err(q, a[0]))
+    second_bound(table[-1], card, *k4_work, "bound_ms_f64_cuda_cores")
     del X_it
     # the plain K5 at 374 takes seconds per matrix: a few of them are
     # compared and timed, the kernel also on all of them
     sel = torch.linspace(0, BC - 1, 4, device=W_all.device).long()
     W = W_all[sel]
     nsel = len(sel)
+    k5_work = (sweep_flops(jacobi_sweep_counts(
+        W, sw, st, eig._default_null_rel(W.dtype)), k64),
+        nsel * f8 * 2 * k64 * k64)        # the sweeps these W need
     check_case(
         table, card, "K5 jacobi_eigh [global rows]",
         f"W ({nsel} of {BC}, {k64}, {k64}), f64 path",
         lambda dt: (W.to(dt).contiguous(),), k5, k5_plain, k5_err,
-        lambda a: sweeps_bound(a[0], sw, st, 0, nsel * f8 * 2 * k64 * k64,
-                               PEAK_FLOPS_F64),
+        lambda a: by(*k5_work),
         lambda w: torch.linalg.eigh(w), path="elasticity-r3-f64",
         time_dtype="float64", f32=False, kernel_fn=k5_rows)
+    second_bound(table[-1], card, *k5_work, "bound_ms_f64_cuda_cores")
     k5_sweep_report("K5 jacobi_eigh [global rows]", W.to, sw, st,
                     dtypes=("float64",))
     ms_all = cuda_ms(lambda: k5(W_all), 1)
@@ -1325,6 +1340,7 @@ def main():
                              "bound_ms", "bound_by", "library_ms", "shape",
                              "dtype", "launches_by_path", "ms_full_batch",
                              "library_ms_full_batch", "bound_ms_3xtf32",
+                             "bound_ms_f64_cuda_cores",
                              "device_ms", "kernel_ms")
          if k in row}
         for row in table]}))

@@ -26,19 +26,20 @@
 //   dependent latency a step at n = 125 (one CTA has the SM), and at
 //   n = 375 the pivot's delivery from shared memory (each lane reads its
 //   rows' pivot values twice a step; four columns a lane cut that
-//   traffic 4x, 0.084 -> 0.062 ms).  The coefficient is (x_c . x_j) rs rs
+//   traffic 4x).  The coefficient is (x_c . x_j) rs rs
 //   rather than x_c . q_j: a rounding-level change; a null column still
 //   gives s_jj = s_cj = 0 and an exactly zero q.
 // * k > 32 (float64, where the smallk stage keeps every direction:
 //   (128, 125, 124) in shared memory, (384, 375, 374) in a global
 //   workspace): FLOPs (2 n k^2 a pass; 8.06e10 at the elasticity shape,
-//   2.4 ms at the 34 TFLOP/s of the f64 CUDA cores), the reads of q and
+//   2.4 ms at the 34 TFLOP/s of the f64 CUDA cores, 1.2 ms at the 67 of
+//   the f64 tensor cores, which MGS's order cannot use), the reads of q and
 //   the traffic of the columns.  Each pass takes the columns in panels of
 //   32 (the last one ragged): the panel runs the chain above in registers
 //   and writes its q's to shared memory, then every later column is
 //   updated once per panel, taking the panel's q's in order, each a dot
 //   and a subtraction.  At n <= 128 (one CTA to an SM, latency) the whole
-//   CTA updates 2-4 blocks of 32 later columns at once in the chain's
+//   CTA updates 2 blocks of 32 later columns at once in the chain's
 //   layout, one barrier per q; beyond, each warp updates its own 4 columns
 //   (12 values a lane each, so each q read from shared memory serves 4
 //   columns) with a shuffle all-reduce per q and no barrier, twelve
@@ -516,10 +517,12 @@ __global__ void __launch_bounds__(GENERIC_THREADS)
   }
 }
 
-// The panel kernel's shapes (each chosen by timing on the card,
-// scripts/mgs_bench.py).  n <= 128: 32 rows a warp, one column a lane, up
-// to four warps (one CTA has the SM); the panel update by the CTA, 4
-// blocks of later columns at once in float32, 2 in float64.
+// The panel kernel's shapes (each chosen by timing on the card at the
+// paths' shapes).  n <= 128: 32 rows a warp, one column a lane, up to four
+// warps (one CTA has the SM); the panel update by the CTA, 2 blocks of
+// later columns at once (timed on the float64 k = 124 main path; the
+// float32 k > 32 instances, which no path runs, are kept for generality
+// only).
 // 128 < n <= 384: for k <= 32, float32 96 rows a warp and 4 columns a
 // lane (four warps at n = 375, 164 registers, three CTAs an SM, so 384
 // matrices run in one wave), float64 32 rows a warp (twelve warps);
@@ -527,8 +530,7 @@ __global__ void __launch_bounds__(GENERIC_THREADS)
 // warp at once.
 template <typename T, int MODE>
 using CfgSmall =
-    Cfg<T, 32, 1, 1, MODE == ONE_PANEL ? 1 : (sizeof(T) == 4 ? 4 : 2), 0, 0,
-        128, 1>;
+    Cfg<T, 32, 1, 1, MODE == ONE_PANEL ? 1 : 2, 0, 0, 128, 1>;
 template <typename T, int MODE>
 using CfgWide = std::conditional_t<
     MODE == ONE_PANEL,
