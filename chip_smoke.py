@@ -49,11 +49,14 @@ Phases (each prints its numbers; any failure exits non-zero):
    float32 path's shapes (all 384 Grams of the chunk, k = 32: K5's
    warp-per-matrix routine; K6's float32 gate on the leaves of every
    chunk of the configuration, K7's on every chunk's X), and K4 / K5 at
-   the float64 path's Gram size (n = 375, k = 374: the global-memory
-   rows, held in float64 only,
-   the one dtype that runs them; K5 and ``torch.linalg.eigh`` are also
-   timed on all 384 Grams); K1 on the whole 2187 block is timed beside
-   the split, for the record;
+   the float64 path's Gram size (n = 375, k = 374: K4's global-memory
+   columns, K5's thread-block cluster, held in float64 only, the one
+   dtype that runs them; K5 on 4 of the W against the plain version, its
+   eigenvalues on all 384 W against ``torch.linalg.eigh``'s, both timed
+   on all 384, with the cluster size, a second bound at the rows'
+   shared-memory traffic and, at the end, its device time per float64
+   refine-3 step); K1 on the whole 2187 block is timed beside the split,
+   for the record;
 5. e2e-f64: small steps in float64 on the CPU (plain versions) and on the
    card (kernels): 3D refine-2 l=1 diffusion on the Jacobi and on the
    smallk route, and 3D refine-2 l=1 elasticity on the Schur split; u and
@@ -76,14 +79,16 @@ Phases (each prints its numbers; any failure exits non-zero):
    ``patch_solver="auto"`` must resolve to the Schur split and the
    spectral stage to smallk; one first call and 2 timed calls, K2, K4,
    K5, K6, K7 launched as often as the code path implies; then refine-3
-   l=2 (512 patches) in float32 and in float64 (K4 / K5 on global rows),
+   l=2 (512 patches) in float32 and in float64 (K4 on global columns, K5
+   on a thread-block cluster per W),
    prolonged fields within 1e-2.
 
 Every path counts its kernel launches from 0, set just before its first
 call and read just after its last; each K4 row's device time per step of
-its path (launches x device ms) is printed.  The second-to-last line is
-the JSON kernel table, the last line ``{"ok": true, "device": {...}}``.  No
-JAX is imported.
+its path (launches x device ms) is printed, and K5's on the float64
+refine-3 path (launches x device ms on all 384 W of a chunk).  The
+second-to-last line is the JSON kernel table, the last line ``{"ok":
+true, "device": {...}}``.  No JAX is imported.
 """
 
 from __future__ import annotations
@@ -101,6 +106,7 @@ PHASES = ("device", "build", "kernels", "el-kernels", "e2e-f64", "jacobi",
 # H100 SXM: float32 outside the tensor cores, float64 on them (DMMA)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+SMS, SMEM_BYTES_PER_CLK = 132, 128   # H100 SXM: SMs, shared memory B/clk
 # second bounds beside ``bound_ms``: row key -> (FLOP/s, what runs at it)
 SECOND_PEAKS = {
     # TF32 tensor cores, 495e12 / 3 products (K1, K6)
@@ -276,6 +282,15 @@ def cuda_ms(fn, reps=3):
 
 
 # ---------------------------------------------------------------------------
+
+def sm_clock_hz():
+    """The card's top SM clock (``nvidia-smi``'s clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
 
 def phase_device():
     import torch
@@ -880,8 +895,8 @@ def phase_el_kernels(card):
     K6 at each split leaf, K7, K2 on a real pivot of T and of G + delta I,
     K4 and K5 at the float32 path's shapes (the B C = 384 Grams, k = 32:
     shared-memory rows), and K4 / K5 at the float64 path's (n = 375,
-    k = 374: global rows, float64 only); K1 on the whole block timed
-    beside the split."""
+    k = 374: K4's global columns, K5's cluster rows, float64 only); K1 on
+    the whole block timed beside the split."""
     import numpy as np
     import torch
     from dealii_slod_tpu_torch.models import basis
@@ -999,6 +1014,13 @@ def phase_el_kernels(card):
         ws = kernels.workspace(name, entry, dt, dmax.device, 1, *sizes)
         return "shared" if ws is None else "global"
 
+    def k5_cluster(dt, n):
+        # K5's thread-block cluster size at row length n (0: another
+        # route; None: a checkout from before the cluster route)
+        if not hasattr(kernels, "query"):
+            return None
+        return kernels.query("slod_jacobi_rows_cluster", dt, dmax.device, n)
+
     k32, Gj, X_it, W = smallk_operands(torch.float32, 1e-6)
     check(k32 == 32, f"elasticity f32 smallk directions {k32}, expected 32")
     check(rows("K4", torch.float32, "slod_mgs_qr", cD, k32) == "shared"
@@ -1034,10 +1056,18 @@ def phase_el_kernels(card):
 
     k64, Gj, X_it, W_all = smallk_operands(torch.float64, 1e-13)
     del Gj, G
-    check(rows("K4", torch.float64, "slod_mgs_qr", cD, k64) == "global"
-          and rows("K5", torch.float64, "slod_jacobi_rows", k64) == "global",
-          f"the float64 elasticity smallk shapes (n {cD}, k {k64}) took "
-          "the shared-memory rows")
+    S = k5_cluster(torch.float64, k64)
+    k5_rows_at = rows("K5", torch.float64, "slod_jacobi_rows", k64)
+    check(rows("K4", torch.float64, "slod_mgs_qr", cD, k64) == "global",
+          f"K4 at the float64 elasticity shape (n {cD}, k {k64}) took the "
+          "shared-memory columns")
+    check(k5_rows_at == "global" if S is None
+          else (S > 0 and k5_rows_at == "shared"),
+          f"K5 at the float64 elasticity W ({k64} x {k64}) took the "
+          f"{k5_rows_at} rows (cluster size {S}), not a cluster's")
+    k5_route = "global rows" if S is None else "cluster rows"
+    print(f"[kernels] K5 at {k64} x {k64} float64: {k5_route}"
+          + ("" if S is None else f", a cluster of {S} CTAs, no workspace"))
     k4_block_check("K4 mgs_qr [global rows]", torch.as_tensor(
         np.random.default_rng(1).standard_normal((BC, cD, k64))
         * np.logspace(0, -3, k64), device="cuda"), X_it, f32=False)
@@ -1059,23 +1089,61 @@ def phase_el_kernels(card):
     k5_work = (sweep_flops(jacobi_sweep_counts(
         W, sw, st, eig._default_null_rel(W.dtype)), k64),
         nsel * f8 * 2 * k64 * k64)        # the sweeps these W need
+    name = f"K5 jacobi_eigh [{k5_route}]"
     check_case(
-        table, card, "K5 jacobi_eigh [global rows]",
+        table, card, name,
         f"W ({nsel} of {BC}, {k64}, {k64}), f64 path",
         lambda dt: (W.to(dt).contiguous(),), k5, k5_plain, k5_err,
         lambda a: by(*k5_work),
         lambda w: torch.linalg.eigh(w), path="elasticity-r3-f64",
         time_dtype="float64", f32=False, kernel_fn=k5_rows)
     second_bound(table[-1], card, *k5_work, "bound_ms_f64_cuda_cores")
-    k5_sweep_report("K5 jacobi_eigh [global rows]", W.to, sw, st,
-                    dtypes=("float64",))
+    row = table[-1]
+    row["cluster_size"] = S
+    k5_sweep_report(name, W.to, sw, st, dtypes=("float64",))
+    # all 384 W: the kernel's eigenvalues against the plain version's
+    # (<= 1e-10 of lambda_max) and against linalg.eigh's, where the kernel
+    # may be no further (+ 1e-10) than the plain version itself: the W
+    # stage's 8 sweeps at tol 3e-6 stop short of eigh's accuracy on some W
+    lam_all = k5(W_all)[0]
+    lam_pl = k5_plain(W_all)[0]
+    ref_all = torch.linalg.eigvalsh(W_all).flip(-1)
+    lmax = ref_all[:, :1]
+    e_k = ((lam_all - ref_all).abs() / lmax).amax(-1)
+    e_p = ((lam_pl - ref_all).abs() / lmax).amax(-1)
+    e_kp = float(((lam_all - lam_pl).abs() / lmax).max())
+    cnt = eig._jacobi_rows_cuda(W_all, sw, st, eig._default_null_rel(
+        W_all.dtype), counts=True)[2].cpu()
+    far = (e_k > 1e-10).nonzero().flatten().cpu()
+    print(f"[kernels] {name}: eigenvalues of all {BC} W: against the plain "
+          f"version {e_kp:.3e} of lambda_max (<= 1e-10); against "
+          f"linalg.eigh's {float(e_k.max()):.3e} (the plain version "
+          f"{float(e_p.max()):.3e}); {len(far)} W beyond 1e-10 of eigh's"
+          + (f", sweeps {cnt[far].tolist()[:12]}" if len(far) else ""))
+    check(e_kp <= 1e-10 and bool((e_k <= e_p + 1e-10).all()),
+          f"{name}: eigenvalues of the 384 W off the plain version's by "
+          f"{e_kp:.3e}, or further from linalg.eigh's than it")
+    del lam_all, lam_pl, ref_all
     ms_all = cuda_ms(lambda: k5(W_all), 1)
     lib_all = cuda_ms(lambda: torch.linalg.eigh(W_all), 1)
-    table[-1]["ms_full_batch"] = ms_all
-    table[-1]["library_ms_full_batch"] = lib_all
-    print(f"[kernels] K5 jacobi_eigh [global rows] on all {BC} W of the "
-          f"chunk, f64: {ms_all:.3f} ms, library (linalg.eigh) "
-          f"{lib_all:.3f} ms [{card}]")
+    row["ms_full_batch"] = ms_all
+    row["library_ms_full_batch"] = lib_all
+    row["device_ms_full_batch"] = device_ms(lambda: k5(W_all), 1)
+    print(f"[kernels] {name} on all {BC} W of the chunk, f64: {ms_all:.3f} "
+          f"ms (device {row['device_ms_full_batch']:.3f} ms), library "
+          f"(linalg.eigh) {lib_all:.3f} ms [{card}]")
+    # the rows' traffic through shared memory with the sweeps the kernel
+    # ran: a round passes half the rows to another warp (written once,
+    # read once); at 128 B per clock on each SM at the card's top SM clock
+    clk = sm_clock_hz()
+    for key, c, ms_ in (("bound_ms_smem", cnt[sel.cpu()], row["ms"]),
+                        ("bound_ms_smem_full_batch", cnt, ms_all)):
+        nbytes = float(c.sum()) * (k64 - 1) * k64 * k64 * f8
+        row[key] = nbytes / (SMS * SMEM_BYTES_PER_CLK * clk) * 1e3
+        print(f"[kernels] {name}: shared-memory bound ({len(c)} W, "
+              f"{nbytes / 1e9:.3f} GB at {SMS} x {SMEM_BYTES_PER_CLK} B/clk "
+              f"x {clk / 1e6:.0f} MHz) {row[key]:.4f} ms "
+              f"({100 * row[key] / ms_:.2f}% of {ms_:.3f} ms) [{card}]")
     return table
 
 
@@ -1240,8 +1308,8 @@ def phase_weig(f64, profile=False):
 
 def phase_elasticity(profile=False):
     """The 4096-patch elasticity step in float32, then refine-3 l=2 in
-    float32 and float64 (K4 / K5 on global rows); returns the per-path
-    numbers by path."""
+    float32 and float64 (K4 on global columns, K5 on cluster rows);
+    returns the per-path numbers by path."""
     s, out = run_path("elasticity", elastic_cfg("float32"), timed=2,
                       profile=profile, elastic=True)
     check(s.solver_mode == "fused_split" and s.spec_mode == "smallk",
@@ -1334,14 +1402,22 @@ def main():
             print(f"[K4] {row['name']}: device time per {row['path']} step "
                   f"{per:g} x {row['device_ms']:.4f} ms = "
                   f"{per * row['device_ms']:.3f} ms [{card}]")
+        if "device_ms_full_batch" in row and row["path"] in paths:
+            # the row's full batch is the path's launch (all W of a chunk)
+            per = paths[row["path"]]["per_step"].get(row["kernel"], 0)
+            dev = row["device_ms_full_batch"]
+            print(f"[K5] {row['name']}: device time per {row['path']} step "
+                  f"{per:g} x {dev:.3f} ms = {per * dev:.3f} ms [{card}]")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",
                              "bound_ms", "bound_by", "library_ms", "shape",
                              "dtype", "launches_by_path", "ms_full_batch",
                              "library_ms_full_batch", "bound_ms_3xtf32",
-                             "bound_ms_f64_cuda_cores",
-                             "device_ms", "kernel_ms")
+                             "bound_ms_f64_cuda_cores", "bound_ms_smem",
+                             "bound_ms_smem_full_batch", "cluster_size",
+                             "device_ms", "kernel_ms",
+                             "device_ms_full_batch")
          if k in row}
         for row in table]}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@
 // each one pair dot per row pair, the rotation's few divisions and square
 // roots, and a rotation of 2 n values -- little arithmetic per step (a
 // 32 x 32 W: ~2 sweeps of 31 rounds; the 126 x 126 factor rows: up to 11
-// sweeps of 125).  So the design removes what stands between two rounds.
-// Two routines, chosen by n in launch_jacobi:
+// sweeps of 125; the float64 elasticity W, 374 x 374: ~5-6 sweeps of 373).
+// So the design removes what stands between two rounds.  Three routines,
+// chosen by n and the type in launch_jacobi:
 //
 // * n = 32 (the smallk stage's W): one warp per matrix, no shared rows and
 //   no CTA barrier.  Lane l holds element l of every row (column l of the
@@ -29,29 +30,55 @@
 //   per round), refreshed exactly at every sweep boundary by a 32-value
 //   butterfly.  Four matrices per CTA, so 384 matrices fill the card in
 //   one wave.
-// * other n (the Jacobi route's 126 x 126 factor rows; K8): one CTA per
-//   matrix, the rows in shared memory for the whole run, so global memory
-//   is touched once each way.  The rows never move: the row a slot holds
-//   at round r is computed in closed form (slot_top / slot_bot: the
-//   caterpillar with slot t0 fixed rotates the other 2m - 1 slots by one
-//   each round), so a round ends in one CTA barrier and nothing else; the
-//   sweep's `off` max and the first sweep's amax2 are warp-shuffle maxima.
-//   At n <= 128 (RegRows) the rows are padded with zero columns to 128
-//   (64 KB f32, 128 KB f64) and a group of lanes takes each pair (8 lanes
-//   in f32: all 63 pairs of n = 126 at once, 504 threads; 16 in f64):
-//   each lane loads its four 16-byte chunks of both rows into registers
-//   once per round, forms its part of the dot, and after the group's
-//   shuffle sum writes the rotated chunks back.  A round moves all n^2
-//   values through shared memory and back; that traffic and the per-pair
-//   rotation arithmetic are what it costs.  Beyond 128 (LoopRows) a warp
-//   per pair walks the rows at stride n with a runtime loop, in shared
-//   memory where they fit, else in a per-CTA slice of a global workspace
-//   the caller allocates (float64 elasticity at n = 374: 1.1 MB per
-//   matrix, beyond the 227 KB a CTA can have; rows_ws_elems decides).
-//   The global rows serve float64 correctness runs; their speed is not a
-//   goal.
-//
-// Both routines run the plain version's rounds in its order (the same
+// * rows that fit one CTA's shared memory (the Jacobi route's 126 x 126
+//   factor rows; K8): one CTA per matrix, the rows in shared memory for the
+//   whole run, so global memory is touched once each way.  The rows never
+//   move: the row a slot holds at round r is computed in closed form
+//   (slot_top / slot_bot: the caterpillar with slot t0 fixed rotates the
+//   other 2m - 1 slots by one each round), so a round ends in one CTA
+//   barrier and nothing else; the sweep's `off` max and the first sweep's
+//   amax2 are warp-shuffle maxima.  At n <= 128 (RegRows) the rows are
+//   padded with zero columns to 128 (64 KB f32, 128 KB f64) and a group of
+//   lanes takes each pair (8 lanes in f32: all 63 pairs of n = 126 at
+//   once, 504 threads; 16 in f64): each lane loads its four 16-byte chunks
+//   of both rows into registers once per round, forms its part of the dot,
+//   and after the group's shuffle sum writes the rotated chunks back.  A
+//   round moves all n^2 values through shared memory and back; that
+//   traffic and the per-pair rotation arithmetic are what it costs.
+//   Beyond 128 (LoopRows) a warp per pair walks the rows at stride n with
+//   a runtime loop.
+// * rows beyond one CTA's shared memory (the float64 elasticity W at
+//   n = 374: 1.1 MB, where a CTA has 227 KB): a thread-block cluster per
+//   matrix, the rows in registers (jacobi_cluster_kernel).  A warp holds
+//   the four rows of two consecutive caterpillar pairs, lane l elements
+//   2 l, 2 l + 1, 64 + 2 l, ... of each, and the rows travel with their
+//   slots as in the n = 32 routine, so a pair's dot is one warp's
+//   lane-strided sums and butterfly, and nothing is re-read to form it.
+//   Of a warp's four rows two move to the neighbour warps each round
+//   (16-byte pieces through an inbox in shared memory, one CTA barrier a
+//   round) and two stay in registers; at a CTA's edge the row goes to the
+//   neighbour CTA through distributed shared memory by asynchronous stores
+//   (st.async) counted on the receiver's mbarrier, so the sender never
+//   waits.  The two dots share one transposed butterfly and each half-warp
+//   computes one pair's rotation, with rsqrt for the cosine as the plain
+//   version writes it.  The sweep's `off` and amax2 are cluster maxima,
+//   one cluster barrier a sweep.  What the card showed
+//   (scripts/k5_cluster_bench.py; H100 80GB HBM3, 700 W): a cluster
+//   barrier costs ~0.73 us and a neighbour's shared memory reads 5-6x
+//   slower than a CTA's own, so a design that exchanges through the whole
+//   cluster every round (rows owned by CTAs and read remotely, or column
+//   slices whose partial dots meet behind a cluster barrier) pays that
+//   every round, where this one sends two rows per CTA edge.  A round is
+//   then bound by latency: the dots, the rotation's divide / square-root
+//   chain and the rows' moves, each a few hundred cycles.  The largest
+//   cluster that takes n is used (16 CTAs of 6 warps at 374: the fewer
+//   rows an SM moves a round, the shorter the round).  The route takes
+//   n <= 384 (12 values of a row a lane; the rows of 16 CTAs' registers).
+//   Beyond, LoopRows walks the rows in a per-CTA slice of a global
+//   workspace the caller allocates (k5_ws_elems decides; no path runs
+//   it).
+
+// All routines run the plain version's rounds in its order (the same
 // pairs, the same formulas for the cosine and sine: eps = finfo.tiny * 1e3,
 // the `big` guard, the zeta sign rule), carry the row norms analytically
 // within a sweep and refresh them exactly at every sweep boundary, and
@@ -77,6 +104,10 @@
 // from the plain version and miss the float32 gate.  The TPU kernel shared
 // its stop over the whole batch (grid = ()); here each matrix stops on its
 // own.  K8 always writes the sorted eigenpairs.
+
+#include <cooperative_groups.h>
+
+#include <mutex>
 
 #include "common.cuh"
 
@@ -172,6 +203,30 @@ __device__ __forceinline__ Rot<T> rotation(T c, T a, T b, T gate, T eps,
   const T t = big ? sgn / (fabs(zeta) + sqrt(T(1) + zeta * zeta)) : T(0);
   Rot<T> r;
   r.cs = T(1) / sqrt(T(1) + t * t);
+  r.sn = r.cs * t;
+  r.csnc = r.cs * r.sn * c;
+  return r;
+}
+
+__device__ __forceinline__ double recip(double x) { return __drcp_rn(x); }
+__device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
+// rotation() with a shorter chain of long-latency steps, for the cluster
+// route: sgn / x as sgn times the correctly rounded reciprocal (the same
+// value), and the cosine as rsqrt(1 + t^2), as the plain version writes
+// it (torch.rsqrt), instead of 1 / sqrt: one division fewer in the chain.
+template <typename T>
+__device__ __forceinline__ Rot<T> rotation_rsqrt(T c, T a, T b, T gate,
+                                                 T eps, T& off) {
+  if (a * b > gate) {
+    const T cos2 = (c * c) / (a * b + eps);
+    off = cos2 > off ? cos2 : off;
+  }
+  const bool big = fabs(c) > eps;
+  const T zeta = (b - a) / (T(2) * (big ? c : T(1)));
+  const T sgn = zeta >= T(0) ? T(1) : T(-1);
+  const T t = big ? sgn * recip(fabs(zeta) + sqrt(T(1) + zeta * zeta)) : T(0);
+  Rot<T> r;
+  r.cs = rsqrt(T(1) + t * t);
   r.sn = r.cs * t;
   r.csnc = r.cs * r.sn * c;
   return r;
@@ -617,6 +672,545 @@ __global__ void __launch_bounds__(R::MAX_THREADS)
                       null_rel, eps);
 }
 
+// ---------------------------------------------------------------------------
+// K5 beyond one CTA's shared memory: a thread-block cluster per matrix, the
+// rows in registers, travelling with their caterpillar slots
+// ---------------------------------------------------------------------------
+
+// Cluster sizes the route may take, largest first (16 is beyond the
+// portable 8 and needs cudaFuncAttributeNonPortableClusterSizeAllowed), and
+// the row lengths of its instances (J values of a row per lane: n <= 32 J).
+#ifndef SLOD_K5_MAX_CLUSTER
+#define SLOD_K5_MAX_CLUSTER 16
+#endif
+constexpr int CL_SIZES[] = {16, 8, 4, 2};
+constexpr int CL_ROWS[] = {8, 12};
+
+// Threads a CTA of the instance with rows of J values a lane may have: the
+// 4 J values of the warp's four rows plus ~56 registers for the rest, in
+// multiples of 128 (ptxas divides the register file by the launch bound
+// rounded up to 128 threads).
+template <typename T, int J>
+constexpr int cl_max_threads() {
+  constexpr int t = 65536 / (4 * J * (int)sizeof(T) / 4 + 56) / 128 * 128;
+  return t < 1024 ? t : 1024;
+}
+template <typename T>
+int cl_max_threads_rt(int J) {
+  return J == 8 ? cl_max_threads<T, 8>() : cl_max_threads<T, 12>();
+}
+
+// The cluster's layout of an n x n matrix: S CTAs; CTA k takes the P
+// consecutive pairs (caterpillar slots) k P .. k P + P - 1 (fewer in the
+// last), warp w of it the two pairs k P + 2 w and k P + 2 w + 1, lane l
+// J elements of their four rows (2 l, 2 l + 1, 64 + 2 l, ...).  Each warp
+// has an inbox per direction in shared memory, two buffers of LDI values
+// (a row and its norm).  The Python twin is ops/eig.py: k5_cluster_plan.
+struct ClusterPlan {
+  int S = 0, P = 0, J = 0, threads = 0, ldi = 0;
+  size_t smem = 0;
+};
+
+// Shared memory of a CTA of W warps: the inboxes, and the n norms of the
+// final sort.
+template <typename T>
+size_t cluster_smem(int n, int warps) {
+  return ((size_t)warps * 4 * (n + 2) + n) * sizeof(T);
+}
+
+// The largest cluster (from SLOD_K5_MAX_CLUSTER down) in which no CTA is
+// empty, whose CTA's warps fit the instance's thread limit (the registers
+// holding the rows) and whose inboxes fit in a CTA's shared memory: the
+// more CTAs share a matrix, the fewer rows each SM moves a round (at
+// 374 x 374 float64, 16 CTAs of 6 warps took 3.8 ms for 4 W where 8 of 12
+// took 5.1, and 110 ms for 384 W where 8 took 115; H100 80GB HBM3, 700 W,
+// scripts/k5_cluster_bench.py shipped S8).  S = 0: no cluster takes n.
+template <typename T>
+ClusterPlan cluster_plan(int n) {
+  ClusterPlan p;
+  const size_t lim = slod::max_smem_optin();
+  if (lim <= slod::STATIC_SMEM_MARGIN || n < 4 || n % 2) return p;
+  int J = 0;
+  for (int j : CL_ROWS)
+    if (J == 0 && 32 * j >= n) J = j;
+  if (J == 0) return p;
+  const int m = n / 2;
+  for (int S : CL_SIZES) {
+    if (S > SLOD_K5_MAX_CLUSTER) continue;
+    int P = (m + S - 1) / S;
+    P += P & 1;
+    if ((S - 1) * P >= m) continue;          // a CTA would hold no pair
+    const int threads = P / 2 * 32;
+    const size_t smem = cluster_smem<T>(n, P / 2);
+    if (threads > cl_max_threads_rt<T>(J) ||
+        smem > lim - slod::STATIC_SMEM_MARGIN)
+      continue;
+    p.S = S;
+    p.P = P;
+    p.J = J;
+    p.threads = threads;
+    p.ldi = n + 2;
+    p.smem = smem;
+    return p;
+  }
+  return p;
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// the shared::cluster address of shared address `a` in CTA `rank`
+__device__ __forceinline__ unsigned mapa(unsigned a, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+// an asynchronous store into another CTA's shared memory that counts its
+// bytes on that CTA's mbarrier (both shared::cluster addresses)
+__device__ __forceinline__ void st_async(unsigned a, double v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, "
+      "[%2];" ::"r"(a), "l"(__double_as_longlong(v)), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned a, float v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(a), "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+// the same for two consecutive values (one 16-byte / 8-byte store)
+__device__ __forceinline__ void st_async2(unsigned a, double x, double y,
+                                          unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b64 [%0], "
+      "{%1, %2}, [%3];" ::"r"(a), "l"(__double_as_longlong(x)),
+      "l"(__double_as_longlong(y)), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async2(unsigned a, float x, float y,
+                                          unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];" ::"r"(a), "r"(__float_as_uint(x)),
+      "r"(__float_as_uint(y)), "r"(bar)
+      : "memory");
+}
+// the arrival that opens an mbarrier phase expecting `bytes`
+__device__ __forceinline__ void arm(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}"
+      ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n"
+      "WAIT_%=:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
+      "%1;\n\t"
+      "@!done bra WAIT_%=;\n\t}"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// One matrix per cluster of S CTAs (grid B S, cluster dims S).  The rows
+// travel with their caterpillar slots, as in the n = 32 routine: after a
+// round pair q's top row moves to pair q + 1 and its bottom row to pair
+// q - 1 (pair 0 keeps its top and passes its bottom to pair 1's top; pair
+// m - 1's top becomes its bottom).  A warp holds two consecutive pairs, so
+// one of each pair's two moves stays in its registers; the other goes to
+// the neighbour warp's inbox (double-buffered by round parity, one CTA
+// barrier a round), and at a CTA's edge into the neighbour CTA's inbox
+// through distributed shared memory by asynchronous stores (st.async) that
+// count their bytes on the receiver's mbarrier, so the sender never waits
+// for them: a CTA waits only for its two neighbours' rows, never for the
+// whole cluster.  A pair's dot is one warp's: each lane's partial sum
+// over its elements, then the butterfly.  The sweep's `off` and the first
+// sweep's amax2 are cluster maxima (one cluster barrier a sweep).
+template <typename T, int J>
+__global__ void __launch_bounds__(cl_max_threads<T, J>(), 1)
+    jacobi_cluster_kernel(const T* __restrict__ Gm, T* __restrict__ XTo,
+                          T* __restrict__ XBo, int* __restrict__ counts,
+                          T* __restrict__ lam, T* __restrict__ V, int n,
+                          int n0, int S, int P, int ldi, int sweeps, T tol,
+                          T null_rel, T eps) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[32];
+  __shared__ T cmax[2];
+  __shared__ __align__(8) unsigned long long bar[4];  // top 0/1, bottom 0/1
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / S, m = n / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int p0 = rank * P + 2 * warp, p1 = p0 + 1;
+  const bool act = p0 < m, has1 = p1 < m;
+  // inboxes: warp w's top inbox (rows arriving from the left) at
+  // box + (4 w + buf) ldi, its bottom inbox at box + (4 w + 2 + buf) ldi
+  T* box = reinterpret_cast<T*>(smem_raw);
+  T* nall = box + (size_t)nwarps * 4 * ldi;
+  auto top_in = [&](int w, int buf) { return box + (size_t)(4 * w + buf) * ldi; };
+  auto bot_in = [&](int w, int buf) {
+    return box + (size_t)(4 * w + 2 + buf) * ldi;
+  };
+  // where this warp's rows come from and go to (-1: nowhere / kept)
+  const bool left_remote = warp == 0 && rank > 0;      // t0 from CTA rank-1
+  const bool right_remote = warp == nwarps - 1 && rank < S - 1;
+  const bool recv_top = act && p0 > 0;                  // t0 from p0 - 1
+  const bool recv_bot = has1 && p1 < m - 1;             // b1 from p1 + 1
+  const bool send_right = recv_bot;   // t1 to p1 + 1 (p1 + 1 < m)
+  const bool send_left = recv_top;    // b0 to p0 - 1
+
+  // lane l holds elements 2 l, 2 l + 1, 64 + 2 l, 64 + 2 l + 1, ... of a
+  // row (J of them; pairs of consecutive values, so that a row moves in
+  // 16-byte pieces); n is even, so a pair lies wholly inside or beyond it
+  auto col = [&](int j) { return 64 * (j >> 1) + 2 * lane + (j & 1); };
+  // a row and its norm from a neighbour CTA: (n + 1) values on bar[]
+  const unsigned row_bytes = (unsigned)((n + 1) * sizeof(T));
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 4; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+          smem_addr(&bar[i])));
+      if (i < 2 ? rank > 0 : rank < S - 1) arm(smem_addr(&bar[i]), row_bytes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // this lane's part of row x (on lane 0 also its norm) into inbox d: plain
+  // stores, or, where `peer` >= 0, asynchronous stores into the same inbox
+  // of CTA peer that count their bytes on its mbarrier *pbar
+  auto send = [&](const T* x, T nrm, T* d, int peer, unsigned long long* pbar) {
+    if (peer < 0) {
+#pragma unroll
+      for (int j = 0; j < J; j += 2)
+        if (col(j) < n)
+          *reinterpret_cast<Pair<T>*>(d + col(j)) = Pair<T>{x[j], x[j + 1]};
+      if (lane == 0) d[n] = nrm;
+      return;
+    }
+    const unsigned base = mapa(smem_addr(d), peer);
+    const unsigned rb = mapa(smem_addr(pbar), peer);
+#pragma unroll
+    for (int j = 0; j < J; j += 2)
+      if (col(j) < n)
+        st_async2(base + (unsigned)(col(j) * sizeof(T)), x[j], x[j + 1], rb);
+    if (lane == 0) st_async(base + (unsigned)(n * sizeof(T)), nrm, rb);
+  };
+
+  T t0[J], b0[J], t1[J], b1[J];
+  const T* g = Gm + (size_t)b * n * n;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = col(j);
+    const bool ok = c < n;
+    t0[j] = ok && act ? g[(size_t)(2 * p0) * n + c] : T(0);
+    b0[j] = ok && act ? g[(size_t)(2 * p0 + 1) * n + c] : T(0);
+    t1[j] = ok && has1 ? g[(size_t)(2 * p1) * n + c] : T(0);
+    b1[j] = ok && has1 ? g[(size_t)(2 * p1 + 1) * n + c] : T(0);
+  }
+  // exact norms^2 of the four rows (zero-padded beyond n: adding 0 changes
+  // no partial sum), lane-strided then the warp butterfly
+  T na0, nb0, na1, nb1;
+  auto refresh = [&]() {
+    T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      s0 += t0[j] * t0[j];
+      s1 += b0[j] * b0[j];
+      s2 += t1[j] * t1[j];
+      s3 += b1[j] * b1[j];
+    }
+    na0 = group_sum<32>(s0);
+    nb0 = group_sum<32>(s1);
+    na1 = group_sum<32>(s2);
+    nb1 = group_sum<32>(s3);
+  };
+  int cm = 0;   // cluster maxima so far; slot cm & 1 is this one's
+  auto cluster_max = [&](T v) {
+    v = warp_max(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    v = warp_max(lane < nwarps ? red[lane] : T(0));
+    if (threadIdx.x == 0) cmax[cm & 1] = v;
+    cluster_barrier();
+    T mx = T(0);
+    for (int k = 0; k < S; ++k) {
+      const T o = cluster.map_shared_rank(cmax, k)[cm & 1];
+      mx = o > mx ? o : mx;
+    }
+    ++cm;
+    return mx;
+  };
+
+  refresh();
+  T mine = T(0);
+  if (act) mine = na0 > nb0 ? na0 : nb0;
+  if (has1) {
+    mine = na1 > mine ? na1 : mine;
+    mine = nb1 > mine ? nb1 : mine;
+  }
+  // (the cluster barrier in cluster_max also publishes the mbarriers'
+  // initialization to the cluster before any remote arrival)
+  const T amax2 = cluster_max(mine);
+  const T gate = (null_rel * amax2) * (null_rel * amax2);
+  T off = T(F32_MAX);
+  int it = 0, gr = 0;   // gr: rounds so far
+  while (tol > T(0) ? (it < sweeps && off > tol) : it < sweeps) {
+    T off_w = T(0);
+    for (int rnd = 0; rnd < n - 1; ++rnd, ++gr) {
+      const int buf = (gr + 1) & 1;                 // the next round's
+      if (act) {
+        T s0 = T(0), s1 = T(0);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          s0 += t0[j] * b0[j];
+          s1 += t1[j] * b1[j];
+        }
+        // the two dots in one transposed butterfly: after the first level
+        // lanes 0-15 carry pair p0's sums, lanes 16-31 pair p1's (the same
+        // additions, in the same order, as a butterfly on each); then each
+        // half computes its pair's rotation (zeros where there is no p1: no
+        // rotation, no `off`), and the warp shares them: half the shuffles
+        // and half the rotation arithmetic a warp would issue
+        const bool hi = lane & 16;
+        T c = (hi ? s1 : s0) + __shfl_xor_sync(FULL, hi ? s0 : s1, 16);
+        c = group_sum<16>(c);
+        const Rot<T> r = rotation_rsqrt(c, hi ? na1 : na0, hi ? nb1 : nb0,
+                                        gate, eps, off_w);
+        Rot<T> r0, r1;
+        r0.cs = __shfl_sync(FULL, r.cs, 0);
+        r0.sn = __shfl_sync(FULL, r.sn, 0);
+        r0.csnc = __shfl_sync(FULL, r.csnc, 0);
+        r1.cs = __shfl_sync(FULL, r.cs, 16);
+        r1.sn = __shfl_sync(FULL, r.sn, 16);
+        r1.csnc = __shfl_sync(FULL, r.csnc, 16);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const T x0 = t0[j], y0 = b0[j], x1 = t1[j], y1 = b1[j];
+          t0[j] = r0.cs * x0 - r0.sn * y0;
+          b0[j] = r0.sn * x0 + r0.cs * y0;
+          t1[j] = r1.cs * x1 - r1.sn * y1;
+          b1[j] = r1.sn * x1 + r1.cs * y1;
+        }
+        const T a0 = r0.cs * r0.cs * na0 - T(2) * r0.csnc + r0.sn * r0.sn * nb0;
+        const T c0 = r0.sn * r0.sn * na0 + T(2) * r0.csnc + r0.cs * r0.cs * nb0;
+        const T a1 = r1.cs * r1.cs * na1 - T(2) * r1.csnc + r1.sn * r1.sn * nb1;
+        const T c1 = r1.sn * r1.sn * na1 + T(2) * r1.csnc + r1.cs * r1.cs * nb1;
+        // out: t1 to the right (pair p1 + 1's top), b0 to the left (pair
+        // p0 - 1's bottom)
+        if (send_right)
+          send(t1, a1, right_remote ? top_in(0, buf) : top_in(warp + 1, buf),
+               right_remote ? rank + 1 : -1, &bar[buf]);
+        if (send_left)
+          send(b0, c0,
+               left_remote ? bot_in(nwarps - 1, buf) : bot_in(warp - 1, buf),
+               left_remote ? rank - 1 : -1, &bar[2 + buf]);
+        // in registers: t1 <- t0 (b0 for pair 0), b0 <- b1, and at the
+        // ring's end b1 <- t1 (pair m - 1) or b0 <- t0 (m - 1 = p0)
+        if (has1) {
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const T ot0 = t0[j], ob0 = b0[j], ot1 = t1[j];
+            t1[j] = p0 == 0 ? ob0 : ot0;
+            b0[j] = b1[j];
+            if (!recv_bot) b1[j] = ot1;
+          }
+          const T oa0 = a0;
+          na1 = p0 == 0 ? c0 : oa0;
+          nb0 = c1;
+          if (!recv_bot) nb1 = a1;
+          na0 = a0;            // pair 0 keeps its top
+        } else {
+#pragma unroll
+          for (int j = 0; j < J; ++j) b0[j] = t0[j];
+          nb0 = a0;
+          na0 = a0;
+        }
+      }
+      __syncthreads();
+      // in: t0 from the left, b1 from the right (the next round's rows)
+      if (recv_top) {
+        if (left_remote) wait_parity(smem_addr(&bar[buf]), (gr >> 1) & 1);
+        const T* s = top_in(warp, buf);
+#pragma unroll
+        for (int j = 0; j < J; j += 2) {
+          const Pair<T> v = col(j) < n
+                                ? *reinterpret_cast<const Pair<T>*>(s + col(j))
+                                : Pair<T>{T(0), T(0)};
+          t0[j] = v.x;
+          t0[j + 1] = v.y;
+        }
+        na0 = s[n];
+        if (left_remote && lane == 0) arm(smem_addr(&bar[buf]), row_bytes);
+      }
+      if (recv_bot) {
+        if (right_remote)
+          wait_parity(smem_addr(&bar[2 + buf]), (gr >> 1) & 1);
+        const T* s = bot_in(warp, buf);
+#pragma unroll
+        for (int j = 0; j < J; j += 2) {
+          const Pair<T> v = col(j) < n
+                                ? *reinterpret_cast<const Pair<T>*>(s + col(j))
+                                : Pair<T>{T(0), T(0)};
+          b1[j] = v.x;
+          b1[j + 1] = v.y;
+        }
+        nb1 = s[n];
+        if (right_remote && lane == 0)
+          arm(smem_addr(&bar[2 + buf]), row_bytes);
+      }
+    }
+    ++it;
+    refresh();
+    off = cluster_max(off_w);
+  }
+  if (counts != nullptr && rank == 0 && threadIdx.x == 0) counts[b] = it;
+
+  if (lam == nullptr) {
+    // slot q holds row q again after whole sweeps
+    if (act) {
+      T* xt = XTo + ((size_t)b * m + p0) * n;
+      T* xb = XBo + ((size_t)b * m + p0) * n;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = col(j);
+        if (c < n) {
+          xt[c] = t0[j];
+          xb[c] = b0[j];
+          if (has1) {
+            xt[n + c] = t1[j];
+            xb[n + c] = b1[j];
+          }
+        }
+      }
+    }
+    cluster_barrier();   // no CTA exits while another may still read it
+    return;
+  }
+  // the sorted eigenpairs: every CTA gathers all n norms (from each row's
+  // CTA), ranks its own rows and writes their eigenvalues and V's columns
+  const T l0 = sqrt(na0), l1 = sqrt(nb0), l2 = sqrt(na1), l3 = sqrt(nb1);
+  if (act && lane == 0) {
+    nall[2 * p0] = l0;
+    nall[2 * p0 + 1] = l1;
+    if (has1) {
+      nall[2 * p1] = l2;
+      nall[2 * p1 + 1] = l3;
+    }
+  }
+  cluster_barrier();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int owner = (i / 2) / P;
+    if (owner != rank) nall[i] = cluster.map_shared_rank(nall, owner)[i];
+  }
+  cluster_barrier();   // every remote read is done: CTAs may finish alone
+  if (!act) return;
+  // lane k < 4 ranks row 2 p0 + k
+  int rk = 0;
+  const int mine_row = 2 * p0 + (lane & 3);
+  if (lane < 4 && mine_row < n) {
+    const T li = nall[mine_row];
+    const int me = cat_index(mine_row, m);
+    for (int j = 0; j < n; ++j)
+      rk += (nall[j] > li || (nall[j] == li && cat_index(j, m) < me)) ? 1
+                                                                      : 0;
+  }
+  const size_t lb = (size_t)b * n0;
+  T* Vb = V + lb * n0;
+  auto write = [&](const T* x, int k, T li) {
+    const int r = __shfl_sync(FULL, rk, k);
+    if (2 * p0 + k >= n || r >= n0) return;
+    if (lane == 0) lam[lb + r] = li;
+    const T den = li > T(1e-30) ? li : T(1e-30);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = col(j);
+      if (c < n0) Vb[(size_t)c * n0 + r] = x[j] / den;
+    }
+  };
+  write(t0, 0, l0);
+  write(b0, 1, l1);
+  if (has1) {
+    write(t1, 2, l2);
+    write(b1, 3, l3);
+  }
+}
+
+template <typename T, int J>
+int launch_cluster_j(const ClusterPlan& p, const T* G, T* XT, T* XB,
+                     int* counts, T* lam, T* V, int B, int n, int n0,
+                     int sweeps, T tol, T null_rel, T eps,
+                     cudaStream_t stream) {
+  auto kern = jacobi_cluster_kernel<T, J>;
+  const void* fn = reinterpret_cast<const void*>(kern);
+  cudaError_t err = slod::opt_in_smem(fn, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  if (p.S > 8) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * p.S);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster of this size and shared memory that no GPC can hold would
+  // never run: refuse it (asked once per device, instance and plan)
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  {
+    static struct {
+      int dev, S, threads;
+      size_t smem;
+    } seen[16];
+    static int n_seen = 0;
+    static std::mutex mu;
+    const std::lock_guard<std::mutex> hold(mu);
+    int i = 0;
+    while (i < n_seen &&
+           (seen[i].dev != dev || seen[i].S != p.S ||
+            seen[i].threads != p.threads || seen[i].smem != p.smem))
+      ++i;
+    if (i == n_seen) {
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+      if (n_seen < 16) seen[n_seen++] = {dev, p.S, p.threads, p.smem};
+    }
+  }
+  err = cudaLaunchKernelEx(&cfg, kern, G, XT, XB, counts, lam, V, n, n0, p.S,
+                           p.P, p.ldi, sweeps, tol, null_rel, eps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cluster(const ClusterPlan& p, const T* G, T* XT, T* XB,
+                   int* counts, T* lam, T* V, int B, int n, int n0,
+                   int sweeps, T tol, T null_rel, T eps, cudaStream_t stream) {
+  return p.J == 8
+             ? launch_cluster_j<T, 8>(p, G, XT, XB, counts, lam, V, B, n, n0,
+                                      sweeps, tol, null_rel, eps, stream)
+             : launch_cluster_j<T, 12>(p, G, XT, XB, counts, lam, V, B, n,
+                                       n0, sweeps, tol, null_rel, eps, stream);
+}
+
 // K8: W = ZT YT^T from ZT, YT (B, k, nf), then the sweeps on W's rows with
 // a warp per pair (LoopRows, see the note at the top), then the sorted
 // eigenpairs to lam (B, k), V (B, k, k).  All 32 warps build W (k^2 dots of
@@ -658,6 +1252,23 @@ int launch_rows(const T* G, T* XT, T* XB, T* ws, int* counts, T* lam, T* V,
   return (int)cudaGetLastError();
 }
 
+// K5's workspace elements per matrix: 0 where the rows fit in one CTA's
+// shared memory or in a cluster's (cluster_plan), n * n (LoopRows' global
+// rows) beyond, -1 where no launch takes n.  The route follows: n = 32 the
+// warp routine, n <= 128 RegRows, then LoopRows in shared memory, the
+// cluster, LoopRows on global rows -- picked by n and T alone.
+template <typename T>
+int k5_cluster_size(int n) {
+  return n > RegRows<T>::LD && rows_ws_elems<T>(n, n) > 0
+             ? cluster_plan<T>(n).S
+             : 0;
+}
+template <typename T>
+long long k5_ws_elems(int n) {
+  if (n == 32 || k5_cluster_size<T>(n) > 0) return 0;
+  return rows_ws_elems<T>(n, k5_ld<T>(n));
+}
+
 // lam / V null: the rows to XT / XB; else the n0 sorted eigenpairs (n0 is
 // n, or n - 1 where the caller padded an odd n with a zero row) to lam, V.
 template <typename T>
@@ -676,6 +1287,11 @@ int launch_jacobi(void* G, void* XT, void* XB, void* ws, void* counts,
                                    (T)null_rel, (T)eps);
     return (int)cudaGetLastError();
   }
+  if (k5_cluster_size<T>(n) > 0)
+    return launch_cluster<T>(cluster_plan<T>(n), (const T*)G, (T*)XT,
+                             (T*)XB, (int*)counts, (T*)lam, (T*)V, B, n, n0,
+                             sweeps, (T)tol, (T)null_rel, (T)eps,
+                             (cudaStream_t)stream);
   const int ld = k5_ld<T>(n);
   const long long ge = rows_ws_elems<T>(n, ld);
   if (ge < 0 || (ge > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
@@ -736,11 +1352,14 @@ int slod_weig_f64(void* ZT, void* YT, void* lam, void* V, void* ws, int B,
 }
 // workspace elements per matrix of K5 / K8 at row length n (0: the rows
 // fit in shared memory; -1: no launch can take n)
-long long slod_jacobi_rows_ws_f32(int n) {
-  return n == 32 ? 0 : rows_ws_elems<float>(n, k5_ld<float>(n));
+long long slod_jacobi_rows_ws_f32(int n) { return k5_ws_elems<float>(n); }
+long long slod_jacobi_rows_ws_f64(int n) { return k5_ws_elems<double>(n); }
+// the cluster size K5 takes at row length n (0: not the cluster route)
+long long slod_jacobi_rows_cluster_f32(int n) {
+  return k5_cluster_size<float>(n);
 }
-long long slod_jacobi_rows_ws_f64(int n) {
-  return n == 32 ? 0 : rows_ws_elems<double>(n, k5_ld<double>(n));
+long long slod_jacobi_rows_cluster_f64(int n) {
+  return k5_cluster_size<double>(n);
 }
 long long slod_weig_ws_f32(int k) { return rows_ws_elems<float>(k, k); }
 long long slod_weig_ws_f64(int k) { return rows_ws_elems<double>(k, k); }

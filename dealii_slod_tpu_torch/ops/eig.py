@@ -179,6 +179,61 @@ def caterpillar_slots(n: int, r: int):
     return top, bot
 
 
+# K5's cluster route (csrc/jacobi_eigh.cu: CL_SIZES, CL_ROWS, cluster_plan)
+K5_CLUSTER_SIZES = (16, 8, 4, 2)
+K5_CLUSTER_ROWS = (8, 12)
+H100_SMEM_OPTIN = 232448      # cudaDevAttrMaxSharedMemoryPerBlockOptin
+_STATIC_SMEM_MARGIN = 1024    # csrc/common.cuh: STATIC_SMEM_MARGIN
+
+
+def k5_cluster_plan(n: int, itemsize: int, max_cluster: int = 16,
+                    smem_limit: int = H100_SMEM_OPTIN):
+    """The layout K5's cluster route gives an n x n matrix (n even) of
+    ``itemsize``-byte values, the twin of ``csrc/jacobi_eigh.cu:
+    cluster_plan``.  Lane l of a warp holds elements 2 l, 2 l + 1,
+    64 + 2 l, ... of its rows (J of them, J the smallest of
+    ``K5_CLUSTER_ROWS`` with 32 J >= n); a warp holds two consecutive
+    pairs (caterpillar slots), a CTA P of them (P = ceil(m / S) rounded
+    up to even, m = n / 2).  S is the largest cluster size from
+    ``max_cluster`` down in which no CTA is empty, the P / 2 warps stay
+    within the instance's thread limit (65536 registers over 4 J values
+    of the rows plus 56, in multiples of 128 threads) and the inboxes
+    (four rows of n + 2 values a warp) and the n final norms fit
+    ``smem_limit`` less the static margin.  Returns a dict (S, P, J,
+    threads, ldi, smem) or None."""
+    J = next((j for j in K5_CLUSTER_ROWS if 32 * j >= n), None)
+    if J is None or n < 4 or n % 2:
+        return None
+    m = n // 2
+    limit = min(1024, 65536 // (4 * J * itemsize // 4 + 56) // 128 * 128)
+    for S in K5_CLUSTER_SIZES:
+        if S > max_cluster:
+            continue
+        P = -(-m // S)
+        P += P % 2
+        threads = P // 2 * 32
+        smem = (P // 2 * 4 * (n + 2) + n) * itemsize
+        if ((S - 1) * P < m and threads <= limit
+                and smem <= smem_limit - _STATIC_SMEM_MARGIN):
+            return dict(S=S, P=P, J=J, threads=threads, ldi=n + 2, smem=smem)
+    return None
+
+
+def k5_cluster_maps(n: int, plan: dict, r: int):
+    """Who holds what in K5's cluster route under ``plan`` at round ``r``:
+    (for each pair q its (CTA, warp, which of the warp's two pairs): CTA
+    q // P, warp (q % P) // 2, q % 2, the same in every round; the CTA
+    holding each row at round r: its slot's pair's, the rows travelling
+    with their caterpillar slots)."""
+    P = plan["P"]
+    pair_warp = [(q // P, (q % P) // 2, q % 2) for q in range(n // 2)]
+    top, bot = caterpillar_slots(n, r)
+    row_cta = [0] * n
+    for q, (t, b) in enumerate(zip(top, bot)):
+        row_cta[t] = row_cta[b] = q // P
+    return pair_warp, row_cta
+
+
 def _ptr(ws: torch.Tensor | None) -> int:
     """Address of a kernel workspace or optional output (0: none; a kernel
     given no workspace works in shared memory or registers)."""

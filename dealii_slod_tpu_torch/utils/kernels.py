@@ -51,13 +51,16 @@ _QUERIES = {
     "slod_mgs_qr_ws": "ii",
     "slod_jacobi_rows_ws": "i",
     "slod_weig_ws": "i",
+    # not a workspace: the thread-block cluster size of K5's launch at row
+    # length n, 0 where K5 takes another route
+    "slod_jacobi_rows_cluster": "i",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
            "d": ctypes.c_double}
 
 launches: Counter = Counter()
 _lib = None
-_ws_elems: dict = {}          # workspace(): the size queries' answers
+_answers: dict = {}           # query(): the size queries' answers
 
 
 def reset_launch_counts() -> None:
@@ -176,6 +179,20 @@ def check_cuda(name: str, *tensors: torch.Tensor,
     suffix(tensors[0].dtype)
 
 
+def query(entry: str, dtype: torch.dtype, device: torch.device,
+          *sizes) -> int:
+    """The answer of the size query ``{entry}_{f32|f64}`` (one of
+    ``_QUERIES``) at ``sizes`` on ``device``, asked once per entry, dtype,
+    device and sizes."""
+    key = (entry, dtype, device, sizes)
+    ans = _answers.get(key)
+    if ans is None:
+        fn = getattr(library(), f"{entry}_{suffix(dtype)}")
+        with torch.cuda.device(device):
+            ans = _answers[key] = int(fn(*sizes))
+    return ans
+
+
 def workspace(name: str, entry: str, dtype: torch.dtype,
               device: torch.device, batch: int, *sizes):
     """The global workspace a launch of ``entry`` at ``sizes`` takes on
@@ -183,12 +200,7 @@ def workspace(name: str, entry: str, dtype: torch.dtype,
     once per entry, dtype, device and sizes): a (batch * elements,) tensor,
     or None where shared memory holds the working set.  Raises where no
     launch can take the sizes."""
-    key = (entry, dtype, device, sizes)
-    elems = _ws_elems.get(key)
-    if elems is None:
-        fn = getattr(library(), f"{entry}_ws_{suffix(dtype)}")
-        with torch.cuda.device(device):
-            elems = _ws_elems[key] = int(fn(*sizes))
+    elems = query(f"{entry}_ws", dtype, device, *sizes)
     if elems < 0:
         raise RuntimeError(f"{name}: no launch takes sizes {sizes} in "
                            f"{dtype} on {device}")

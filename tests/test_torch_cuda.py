@@ -381,9 +381,10 @@ def test_k4_null_columns_across_panels(cuda, n, k):
 
 
 def test_k4_k5_global_rows_match_plain(cuda):
-    """Float64 at the elasticity Gram size, n = 375, k = 374: the rows do
-    not fit in one CTA's shared memory, so K4 and K5 work in a global
-    workspace."""
+    """Float64 at the elasticity Gram size, n = 375, k = 374: the columns
+    do not fit in one CTA's shared memory, so K4 works in a global
+    workspace; K5's 374 x 374 rows take a thread-block cluster, which
+    needs none."""
     rng = np.random.default_rng(374)
     X = torch.from_numpy(rng.standard_normal((2, 375, 374))
                          * np.logspace(0, -3, 374))
@@ -391,6 +392,8 @@ def test_k4_k5_global_rows_match_plain(cuda):
                              374).numel() == 2 * 375 * 374
     assert kernels.workspace("K4", "slod_mgs_qr", X.dtype, cuda, 2, 375,
                              32) is None            # fits: shared memory
+    assert kernels.workspace("K5", "slod_jacobi_rows", X.dtype, cuda, 2,
+                             374) is None           # a cluster's rows
     assert rel(eig.mgs_qr(X.to(cuda)).cpu(), eig.mgs_qr_plain(X)) <= 1e-10
     Q, _ = np.linalg.qr(rng.standard_normal((2, 374, 374)))
     G = torch.from_numpy((Q * np.logspace(-3, 0, 374)) @ Q.transpose(0, 2, 1))
@@ -399,6 +402,118 @@ def test_k4_k5_global_rows_match_plain(cuda):
     assert rel(lam.cpu(), lam_r) <= 1e-10
     sgn = torch.sign((V.cpu() * V_r).sum(-2, keepdim=True))
     assert float((V.cpu() * sgn - V_r).abs().max()) <= 1e-8
+
+
+def _plain_sweeps(g, sweeps, tol):
+    """The sweeps each matrix of g (B, n, n) runs in the plain version under
+    the per-matrix stop (block=1): its loop, counting."""
+    B, n, _ = g.shape
+    null_rel, eps = eig._default_null_rel(g.dtype), eig._eps(g.dtype)
+    XT, XB = g[:, 0::2].clone(), g[:, 1::2].clone()
+    a0, b0 = (XT * XT).sum(-1, keepdim=True), (XB * XB).sum(-1, keepdim=True)
+    amax2 = torch.maximum(a0, b0).amax(-2, keepdim=True)
+    off = torch.full((B,), eig._F32_MAX, dtype=g.dtype, device=g.device)
+    active = torch.ones(B, dtype=torch.bool, device=g.device)
+    count = torch.zeros(B, dtype=torch.int64, device=g.device)
+    for _ in range(sweeps):
+        active = active & (off > tol)
+        if not bool(active.any()):
+            break
+        count += active
+        XT0, XB0 = XT, XB
+        a, b = (XT * XT).sum(-1, keepdim=True), (XB * XB).sum(-1, keepdim=True)
+        o = g.new_zeros(B)
+        for _ in range(n - 1):
+            XT, XB, a, b, o = eig._caterpillar_round_nj(
+                XT, XB, a, b, eps, off=o, amax2=amax2, null_rel=null_rel)
+        act = active[:, None, None]
+        XT, XB = torch.where(act, XT, XT0), torch.where(act, XB, XB0)
+        off = torch.where(active, o, off)
+    return count.cpu()
+
+
+def _w_like(rng, B, n, deficient):
+    """B PSD (n, n) W built as the smallk stage builds them: G (n + 1) x
+    (n + 1) with eigenvalues logspace(-13, 0) in a random basis, three
+    inverse subspace steps on n directions from a fixed start, W = Z^T G
+    Z (these stop after ~5-7 sweeps at tol 3e-6, as the path's W do);
+    ``deficient``: rows and columns 0, n // 2 and n - 1 zeroed, and the
+    last matrix all zero."""
+    Q, _ = np.linalg.qr(rng.standard_normal((B, n + 1, n + 1)))
+    G = (Q * np.logspace(-13, 0, n + 1)) @ Q.transpose(0, 2, 1)
+    Gi = np.linalg.inv(G)
+    Z = np.broadcast_to(np.linalg.qr(rng.standard_normal((n + 1, n)))[0],
+                        (B, n + 1, n))
+    for _ in range(3):
+        Z = np.linalg.qr(Gi @ Z)[0]
+    W = Z.transpose(0, 2, 1) @ G @ Z
+    W = 0.5 * (W + W.transpose(0, 2, 1))
+    if deficient:
+        idx = [0, n // 2, n - 1]
+        W[:, idx, :] = 0.0
+        W[:, :, idx] = 0.0
+        W[-1] = 0.0
+    return torch.from_numpy(np.ascontiguousarray(W))
+
+
+@pytest.mark.parametrize("deficient", [False, True])
+@pytest.mark.parametrize("n, dtype", [(374, torch.float64),
+                                      (376, torch.float32),
+                                      (200, torch.float64)])
+def test_k5_cluster_matches_plain_block1(cuda, n, dtype, deficient):
+    """K5's thread-block cluster route (rows beyond one CTA's shared
+    memory: the float64 elasticity W at 374, float32 at 376, float64 at
+    200) on W built as the smallk stage builds them, against the plain
+    version with each matrix stopping on its own (block=1, tol 3e-6, at
+    most 30 sweeps), to the tolerances of ``test_k5_matches_plain_block1``;
+    no workspace, the cluster size of ``eig.k5_cluster_plan``, the sweeps
+    each matrix ran equal to the plain version's in the same dtype, and
+    the kernel's sort agreeing with ``_finalize_rows`` on the rows it
+    writes.  (On ``_k5_inputs``' spectrum, 362 of 374 eigenvalues within
+    0.1-0.5, the sweeps stop at tol 3e-6 far from convergence, where two
+    summation orders part by ~5e-10 in the eigenvalues: the converged
+    comparison at 374 is ``test_k4_k5_global_rows_match_plain``'s.)"""
+    B = 3
+    G = _w_like(np.random.default_rng(n), B, n, deficient).to(cuda)
+    g = G.to(dtype)
+    S = kernels.query("slod_jacobi_rows_cluster", dtype, cuda, n)
+    assert S > 0 and S == eig.k5_cluster_plan(n, g.element_size())["S"]
+    assert kernels.workspace("K5", "slod_jacobi_rows", dtype, cuda, B,
+                             n) is None
+    ref = _k5_plain(G, 3e-6)
+    kernels.reset_launch_counts()
+    out = eig.jacobi_eigh(g, sweeps=30, tol=3e-6)
+    assert kernels.launches["K5 jacobi_eigh"] == 1
+    sep = 1e-6 if dtype == torch.float64 else 1e-2
+    e_lam, e_vec = _k5_errs(out, ref, sep)
+    if dtype == torch.float64:
+        assert e_lam <= 1e-10 and e_vec <= 1e-8, (e_lam, e_vec)
+    else:
+        base = max(_k5_errs(_k5_plain(g, 3e-6), ref, sep))
+        assert max(e_lam, e_vec) <= 4 * base + 1e-6, (e_lam, e_vec, base)
+    if deficient:
+        assert bool((out[0][-1] == 0).all()) and bool((out[1][-1] == 0).all())
+    XT, XB, counts = eig._jacobi_rows_cuda(g, 30, 3e-6,
+                                           eig._default_null_rel(dtype),
+                                           counts=True)
+    assert max(_same_as_rows(out, XT, XB, n)) <= _SAME[dtype]
+    assert torch.equal(counts.cpu().long(), _plain_sweeps(g, 30, 3e-6))
+
+
+def test_k5_global_rows_beyond_cluster(cuda):
+    """Float64 at n = 700: no cluster holds the rows (the twin agrees), so
+    K5 keeps LoopRows on a global workspace; against the plain version on a
+    W built as the smallk stage builds them."""
+    n = 700
+    assert kernels.query("slod_jacobi_rows_cluster", torch.float64, cuda,
+                         n) == 0
+    assert eig.k5_cluster_plan(n, 8) is None
+    assert kernels.workspace("K5", "slod_jacobi_rows", torch.float64, cuda,
+                             1, n).numel() == n * n
+    G = _w_like(np.random.default_rng(n), 1, n, False).to(cuda)
+    e_lam, e_vec = _k5_errs(eig.jacobi_eigh(G, sweeps=30, tol=3e-6),
+                            _k5_plain(G, 3e-6), 1e-6)
+    assert e_lam <= 1e-10 and e_vec <= 1e-8, (e_lam, e_vec)
 
 
 @pytest.mark.parametrize("k, tol", [(8, 0.0), (32, 3e-6), (124, 3e-6)])

@@ -329,7 +329,8 @@ def test_jacobi_eigh_factor_matches_jax():
 
 
 @pytest.mark.parametrize("n, r", [(n, r) for n in (2, 4, 32, 126)
-                                  for r in range(n - 1)])
+                                  for r in range(n - 1)]
+                         + [(374, r) for r in (0, 1, 186, 372)])
 def test_caterpillar_slots_match_plain_advance(n, r):
     """K5's CTA routine never moves a row: it computes the row that each
     caterpillar slot holds at round r in closed form (``caterpillar_slots``,
@@ -347,6 +348,75 @@ def test_caterpillar_slots_match_plain_advance(n, r):
     top, bot = eig.caterpillar_slots(n, r)
     assert torch.equal(XT[0], eye[top]) and torch.equal(XB[0], eye[bot])
     assert eig.caterpillar_slots(n, r + n - 1) == (top, bot)   # period n-1
+
+
+def _k5_cluster_cases():
+    """(n, itemsize, S): every cluster size K5's cluster route can pick at
+    n in {126, 374, 376} in float32 and float64 (the plan from each
+    largest size down)."""
+    cases = []
+    for n in (126, 374, 376):
+        for size in (4, 8):
+            picked = {p["S"] for s in eig.K5_CLUSTER_SIZES
+                      if (p := eig.k5_cluster_plan(n, size, s)) is not None}
+            cases += [(n, size, S) for S in sorted(picked)]
+    return cases
+
+
+@pytest.mark.parametrize("n, itemsize, S", _k5_cluster_cases())
+def test_k5_cluster_maps_cover_every_round(n, itemsize, S):
+    """K5's cluster route (``k5_cluster_plan`` / ``k5_cluster_maps``, the
+    twins of ``csrc/jacobi_eigh.cu: cluster_plan`` and the kernel's index
+    arithmetic), in every round: every row in exactly one pair, every pair
+    on exactly one warp of one CTA (one of the warp's two pairs, within the
+    CTA's threads), no CTA holding more rows than its slice of 2 P, no CTA
+    empty, and between two rounds only the two rows at each CTA edge
+    changing CTA (what the kernel sends through distributed shared
+    memory).  The plan's inboxes fit the card's shared memory."""
+    plan = eig.k5_cluster_plan(n, itemsize, S)
+    assert plan["S"] == S and plan["P"] % 2 == 0
+    P, m = plan["P"], n // 2
+    assert plan["smem"] <= eig.H100_SMEM_OPTIN - 1024
+    assert plan["threads"] == P // 2 * 32 <= 1024
+    assert 32 * plan["J"] >= n
+    prev = None
+    for r in range(n):
+        pair_warp, row_cta = eig.k5_cluster_maps(n, plan, r)
+        top, bot = eig.caterpillar_slots(n, r)
+        assert sorted(top + bot) == list(range(n))
+        assert len(set(pair_warp)) == m
+        assert all(w < P // 2 and h in (0, 1) for _, w, h in pair_warp)
+        assert sorted({k for k, _, _ in pair_warp}) == list(range(S))
+        assert max(row_cta.count(k) for k in range(S)) <= 2 * P
+        if prev is not None:
+            moved = sum(a != b for a, b in zip(prev, row_cta))
+            assert moved == 2 * (S - 1)
+        prev = row_cta
+
+
+def test_jacobi_eigh_matches_jax_at_path_shape():
+    """K5 at the float64 elasticity W shape (374 x 374) with the smallk W's
+    settings (8 sweeps at most, tol 3e-6, each matrix stopping on its own):
+    two W built as the smallk stage builds them (a PSD G of 375 x 375 with
+    eigenvalues logspace(-13, 0), three inverse subspace steps on 374
+    directions, W = Z^T G Z); eigenvalues to 1e-10 of lambda_max, vectors
+    up to sign."""
+    rng = np.random.default_rng(374)
+    n, k = 375, 374
+    Q, _ = np.linalg.qr(rng.standard_normal((2, n, n)))
+    G = (Q * np.logspace(-13, 0, n)) @ Q.transpose(0, 2, 1)
+    Gi = np.linalg.inv(G)
+    Z = np.broadcast_to(np.linalg.qr(rng.standard_normal((n, k)))[0],
+                        (2, n, k))
+    for _ in range(3):
+        Z = np.linalg.qr(Gi @ Z)[0]
+    W = Z.transpose(0, 2, 1) @ G @ Z
+    W = 0.5 * (W + W.transpose(0, 2, 1))
+    jlam, jV = jax_eig.jacobi_eigh_pallas(jnp.asarray(W), sweeps=8, block=1,
+                                          tol=3e-6)
+    lam, V = eig.jacobi_eigh(torch.from_numpy(W), sweeps=8, block=1,
+                             tol=3e-6)
+    _check_eig(lam, V, jlam, jV)
 
 
 def test_band_assembly_matches_jax():
