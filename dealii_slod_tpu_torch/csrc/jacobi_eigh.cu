@@ -63,13 +63,17 @@
 //   computes one pair's rotation, with rsqrt for the cosine as the plain
 //   version writes it.  The sweep's `off` and amax2 are cluster maxima,
 //   one cluster barrier a sweep.  What the card showed
-//   (scripts/k5_cluster_bench.py; H100 80GB HBM3, 700 W): a cluster
-//   barrier costs ~0.73 us and a neighbour's shared memory reads 5-6x
-//   slower than a CTA's own, so a design that exchanges through the whole
-//   cluster every round (rows owned by CTAs and read remotely, or column
-//   slices whose partial dots meet behind a cluster barrier) pays that
-//   every round, where this one sends two rows per CTA edge.  A round is
-//   then bound by latency: the dots, the rotation's divide / square-root
+//   (scripts/dsmem_bench.py; H100 80GB HBM3, 700 W): a load from a
+//   neighbour CTA's shared memory takes ~95-107 ns where one from a CTA's
+//   own takes ~19, a cluster barrier ~0.73-0.77 us, and with twelve
+//   independent loads in flight a thread reads a neighbour's shared memory
+//   at 22-32 GB/s an SM against ~150 for its own (the same
+//   ld.shared::cluster instruction).  A design in which CTAs own the rows
+//   and a pair's warp reads and writes them where they lie would move most
+//   rows through distributed shared memory and cross a cluster barrier
+//   every round; it was not built.  This one sends two rows per CTA edge a
+//   round and crosses the cluster once a sweep.  A round is
+//   bound by latency: the dots, the rotation's divide / square-root
 //   chain and the rows' moves, each a few hundred cycles.  The largest
 //   cluster that takes n is used (16 CTAs of 6 warps at 374: the fewer
 //   rows an SM moves a round, the shorter the round).  The route takes
@@ -106,8 +110,6 @@
 // own.  K8 always writes the sorted eigenpairs.
 
 #include <cooperative_groups.h>
-
-#include <mutex>
 
 #include "common.cuh"
 
@@ -182,15 +184,22 @@ __device__ __forceinline__ T slot_norm(const T* x, int lane) {
   return reduce_scatter<N>(v, lane);
 }
 
+__device__ __forceinline__ double recip(double x) { return __drcp_rn(x); }
+__device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
+
 // One pair's rotation from its dot c and carried norms a (top), b (bottom):
 // the formulas of the plain version; folds the squared row-cosine of a
-// significant pair into off.
+// significant pair into off.  kRsqrt (the cluster route) shortens the chain
+// of long-latency steps: sgn / x as sgn times the correctly rounded
+// reciprocal (the same value), and the cosine as rsqrt(1 + t^2), as the
+// plain version writes it (torch.rsqrt), instead of 1 / sqrt: one division
+// fewer.
 template <typename T>
 struct Rot {
   T cs, sn, csnc;
 };
 
-template <typename T>
+template <typename T, bool kRsqrt = false>
 __device__ __forceinline__ Rot<T> rotation(T c, T a, T b, T gate, T eps,
                                            T& off) {
   if (a * b > gate) {
@@ -200,34 +209,17 @@ __device__ __forceinline__ Rot<T> rotation(T c, T a, T b, T gate, T eps,
   const bool big = fabs(c) > eps;
   const T zeta = (b - a) / (T(2) * (big ? c : T(1)));
   const T sgn = zeta >= T(0) ? T(1) : T(-1);
-  const T t = big ? sgn / (fabs(zeta) + sqrt(T(1) + zeta * zeta)) : T(0);
   Rot<T> r;
-  r.cs = T(1) / sqrt(T(1) + t * t);
-  r.sn = r.cs * t;
-  r.csnc = r.cs * r.sn * c;
-  return r;
-}
-
-__device__ __forceinline__ double recip(double x) { return __drcp_rn(x); }
-__device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
-// rotation() with a shorter chain of long-latency steps, for the cluster
-// route: sgn / x as sgn times the correctly rounded reciprocal (the same
-// value), and the cosine as rsqrt(1 + t^2), as the plain version writes
-// it (torch.rsqrt), instead of 1 / sqrt: one division fewer in the chain.
-template <typename T>
-__device__ __forceinline__ Rot<T> rotation_rsqrt(T c, T a, T b, T gate,
-                                                 T eps, T& off) {
-  if (a * b > gate) {
-    const T cos2 = (c * c) / (a * b + eps);
-    off = cos2 > off ? cos2 : off;
+  if constexpr (kRsqrt) {
+    const T t = big ? sgn * recip(fabs(zeta) + sqrt(T(1) + zeta * zeta))
+                    : T(0);
+    r.cs = rsqrt(T(1) + t * t);
+    r.sn = r.cs * t;
+  } else {
+    const T t = big ? sgn / (fabs(zeta) + sqrt(T(1) + zeta * zeta)) : T(0);
+    r.cs = T(1) / sqrt(T(1) + t * t);
+    r.sn = r.cs * t;
   }
-  const bool big = fabs(c) > eps;
-  const T zeta = (b - a) / (T(2) * (big ? c : T(1)));
-  const T sgn = zeta >= T(0) ? T(1) : T(-1);
-  const T t = big ? sgn * recip(fabs(zeta) + sqrt(T(1) + zeta * zeta)) : T(0);
-  Rot<T> r;
-  r.cs = rsqrt(T(1) + t * t);
-  r.sn = r.cs * t;
   r.csnc = r.cs * r.sn * c;
   return r;
 }
@@ -680,9 +672,6 @@ __global__ void __launch_bounds__(R::MAX_THREADS)
 // Cluster sizes the route may take, largest first (16 is beyond the
 // portable 8 and needs cudaFuncAttributeNonPortableClusterSizeAllowed), and
 // the row lengths of its instances (J values of a row per lane: n <= 32 J).
-#ifndef SLOD_K5_MAX_CLUSTER
-#define SLOD_K5_MAX_CLUSTER 16
-#endif
 constexpr int CL_SIZES[] = {16, 8, 4, 2};
 constexpr int CL_ROWS[] = {8, 12};
 
@@ -718,13 +707,14 @@ size_t cluster_smem(int n, int warps) {
   return ((size_t)warps * 4 * (n + 2) + n) * sizeof(T);
 }
 
-// The largest cluster (from SLOD_K5_MAX_CLUSTER down) in which no CTA is
-// empty, whose CTA's warps fit the instance's thread limit (the registers
-// holding the rows) and whose inboxes fit in a CTA's shared memory: the
-// more CTAs share a matrix, the fewer rows each SM moves a round (at
-// 374 x 374 float64, 16 CTAs of 6 warps took 3.8 ms for 4 W where 8 of 12
-// took 5.1, and 110 ms for 384 W where 8 took 115; H100 80GB HBM3, 700 W,
-// scripts/k5_cluster_bench.py shipped S8).  S = 0: no cluster takes n.
+// The largest cluster of CL_SIZES in which no CTA is empty, whose CTA's
+// warps fit the instance's thread limit (the registers holding the rows)
+// and whose inboxes fit in a CTA's shared memory: the more CTAs share a
+// matrix, the fewer rows each SM moves a round (at 374 x 374 float64, 16
+// CTAs of 6 warps took 4.42 ms of device time on 4 W where 8 CTAs of 12
+// took 5.93, and 142.5-142.8 ms on 384 W where 8 took 148.5; H100 80GB
+// HBM3, 700 W, chip_smoke.py on a copy from scripts/k5_cluster_variant.py).
+// S = 0: no cluster takes n.
 template <typename T>
 ClusterPlan cluster_plan(int n) {
   ClusterPlan p;
@@ -736,7 +726,6 @@ ClusterPlan cluster_plan(int n) {
   if (J == 0) return p;
   const int m = n / 2;
   for (int S : CL_SIZES) {
-    if (S > SLOD_K5_MAX_CLUSTER) continue;
     int P = (m + S - 1) / S;
     P += P & 1;
     if ((S - 1) * P >= m) continue;          // a CTA would hold no pair
@@ -981,8 +970,8 @@ __global__ void __launch_bounds__(cl_max_threads<T, J>(), 1)
         const bool hi = lane & 16;
         T c = (hi ? s1 : s0) + __shfl_xor_sync(FULL, hi ? s0 : s1, 16);
         c = group_sum<16>(c);
-        const Rot<T> r = rotation_rsqrt(c, hi ? na1 : na0, hi ? nb1 : nb0,
-                                        gate, eps, off_w);
+        const Rot<T> r = rotation<T, true>(c, hi ? na1 : na0,
+                                           hi ? nb1 : nb0, gate, eps, off_w);
         Rot<T> r0, r1;
         r0.cs = __shfl_sync(FULL, r.cs, 0);
         r0.sn = __shfl_sync(FULL, r.sn, 0);
@@ -1169,31 +1158,11 @@ int launch_cluster_j(const ClusterPlan& p, const T* G, T* XT, T* XB,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   // a cluster of this size and shared memory that no GPC can hold would
-  // never run: refuse it (asked once per device, instance and plan)
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  // never run: refuse it
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   if (err != cudaSuccess) return (int)err;
-  {
-    static struct {
-      int dev, S, threads;
-      size_t smem;
-    } seen[16];
-    static int n_seen = 0;
-    static std::mutex mu;
-    const std::lock_guard<std::mutex> hold(mu);
-    int i = 0;
-    while (i < n_seen &&
-           (seen[i].dev != dev || seen[i].S != p.S ||
-            seen[i].threads != p.threads || seen[i].smem != p.smem))
-      ++i;
-    if (i == n_seen) {
-      int clusters = 0;
-      err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-      if (err != cudaSuccess) return (int)err;
-      if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-      if (n_seen < 16) seen[n_seen++] = {dev, p.S, p.threads, p.smem};
-    }
-  }
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
   err = cudaLaunchKernelEx(&cfg, kern, G, XT, XB, counts, lam, V, n, n0, p.S,
                            p.P, p.ldi, sweeps, tol, null_rel, eps);
   if (err != cudaSuccess) return (int)err;

@@ -186,37 +186,42 @@ H100_SMEM_OPTIN = 232448      # cudaDevAttrMaxSharedMemoryPerBlockOptin
 _STATIC_SMEM_MARGIN = 1024    # csrc/common.cuh: STATIC_SMEM_MARGIN
 
 
-def k5_cluster_plan(n: int, itemsize: int, max_cluster: int = 16,
-                    smem_limit: int = H100_SMEM_OPTIN):
-    """The layout K5's cluster route gives an n x n matrix (n even) of
-    ``itemsize``-byte values, the twin of ``csrc/jacobi_eigh.cu:
-    cluster_plan``.  Lane l of a warp holds elements 2 l, 2 l + 1,
-    64 + 2 l, ... of its rows (J of them, J the smallest of
-    ``K5_CLUSTER_ROWS`` with 32 J >= n); a warp holds two consecutive
-    pairs (caterpillar slots), a CTA P of them (P = ceil(m / S) rounded
-    up to even, m = n / 2).  S is the largest cluster size from
-    ``max_cluster`` down in which no CTA is empty, the P / 2 warps stay
-    within the instance's thread limit (65536 registers over 4 J values
-    of the rows plus 56, in multiples of 128 threads) and the inboxes
-    (four rows of n + 2 values a warp) and the n final norms fit
-    ``smem_limit`` less the static margin.  Returns a dict (S, P, J,
-    threads, ldi, smem) or None."""
+def k5_cluster_layout(n: int, itemsize: int, S: int,
+                      smem_limit: int = H100_SMEM_OPTIN):
+    """The layout of an n x n matrix (n even) of ``itemsize``-byte values
+    on a cluster of S CTAs in K5's cluster route, or None where it does not
+    fit.  Lane l of a warp holds elements 2 l, 2 l + 1, 64 + 2 l, ... of
+    its rows (J of them, J the smallest of ``K5_CLUSTER_ROWS`` with
+    32 J >= n); a warp holds two consecutive pairs (caterpillar slots), a
+    CTA P of them (P = ceil(m / S) rounded up to even, m = n / 2).  It fits
+    where no CTA is empty, the P / 2 warps stay within the instance's
+    thread limit (65536 registers over 4 J values of the rows plus 56, in
+    multiples of 128 threads) and the inboxes (four rows of n + 2 values a
+    warp) and the n final norms fit ``smem_limit`` less the static margin.
+    Returns a dict (S, P, J, threads, ldi, smem) or None."""
     J = next((j for j in K5_CLUSTER_ROWS if 32 * j >= n), None)
     if J is None or n < 4 or n % 2:
         return None
     m = n // 2
     limit = min(1024, 65536 // (4 * J * itemsize // 4 + 56) // 128 * 128)
-    for S in K5_CLUSTER_SIZES:
-        if S > max_cluster:
-            continue
-        P = -(-m // S)
-        P += P % 2
-        threads = P // 2 * 32
-        smem = (P // 2 * 4 * (n + 2) + n) * itemsize
-        if ((S - 1) * P < m and threads <= limit
-                and smem <= smem_limit - _STATIC_SMEM_MARGIN):
-            return dict(S=S, P=P, J=J, threads=threads, ldi=n + 2, smem=smem)
+    P = -(-m // S)
+    P += P % 2
+    threads = P // 2 * 32
+    smem = (P // 2 * 4 * (n + 2) + n) * itemsize
+    if ((S - 1) * P < m and threads <= limit
+            and smem <= smem_limit - _STATIC_SMEM_MARGIN):
+        return dict(S=S, P=P, J=J, threads=threads, ldi=n + 2, smem=smem)
     return None
+
+
+def k5_cluster_plan(n: int, itemsize: int,
+                    smem_limit: int = H100_SMEM_OPTIN):
+    """The layout K5's cluster route gives an n x n matrix, the twin of
+    ``csrc/jacobi_eigh.cu: cluster_plan``: ``k5_cluster_layout`` at the
+    largest of ``K5_CLUSTER_SIZES`` that fits, or None."""
+    return next((p for S in K5_CLUSTER_SIZES
+                 if (p := k5_cluster_layout(n, itemsize, S, smem_limit))
+                 is not None), None)
 
 
 def k5_cluster_maps(n: int, plan: dict, r: int):

@@ -351,30 +351,27 @@ def test_caterpillar_slots_match_plain_advance(n, r):
 
 
 def _k5_cluster_cases():
-    """(n, itemsize, S): every cluster size K5's cluster route can pick at
-    n in {126, 374, 376} in float32 and float64 (the plan from each
-    largest size down)."""
-    cases = []
-    for n in (126, 374, 376):
-        for size in (4, 8):
-            picked = {p["S"] for s in eig.K5_CLUSTER_SIZES
-                      if (p := eig.k5_cluster_plan(n, size, s)) is not None}
-            cases += [(n, size, S) for S in sorted(picked)]
-    return cases
+    """(n, itemsize, S): every cluster size K5's cluster route can lay out
+    at n in {126, 374, 376} in float32 and float64."""
+    return [(n, size, S) for n in (126, 374, 376) for size in (4, 8)
+            for S in sorted(eig.K5_CLUSTER_SIZES)
+            if eig.k5_cluster_layout(n, size, S) is not None]
 
 
 @pytest.mark.parametrize("n, itemsize, S", _k5_cluster_cases())
 def test_k5_cluster_maps_cover_every_round(n, itemsize, S):
-    """K5's cluster route (``k5_cluster_plan`` / ``k5_cluster_maps``, the
+    """K5's cluster route (``k5_cluster_layout`` / ``k5_cluster_maps``, the
     twins of ``csrc/jacobi_eigh.cu: cluster_plan`` and the kernel's index
-    arithmetic), in every round: every row in exactly one pair, every pair
+    arithmetic; ``k5_cluster_plan`` takes the largest size that fits), in
+    every round: every row in exactly one pair, every pair
     on exactly one warp of one CTA (one of the warp's two pairs, within the
     CTA's threads), no CTA holding more rows than its slice of 2 P, no CTA
     empty, and between two rounds only the two rows at each CTA edge
     changing CTA (what the kernel sends through distributed shared
     memory).  The plan's inboxes fit the card's shared memory."""
-    plan = eig.k5_cluster_plan(n, itemsize, S)
+    plan = eig.k5_cluster_layout(n, itemsize, S)
     assert plan["S"] == S and plan["P"] % 2 == 0
+    assert eig.k5_cluster_plan(n, itemsize)["S"] >= S
     P, m = plan["P"], n // 2
     assert plan["smem"] <= eig.H100_SMEM_OPTIN - 1024
     assert plan["threads"] == P // 2 * 32 <= 1024
