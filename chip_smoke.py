@@ -41,7 +41,9 @@ Phases (each prints its numbers; any failure exits non-zero):
    themselves), and K5 rows also the rows launch alone (``kernel_ms``);
    every K5 row prints the sweeps each matrix ran in the kernel beside the
    plain version's per-matrix count, in both dtypes, so a changed stopping
-   rule shows;
+   rule shows; K8 rows likewise; K5 and K8 also at the float64 main step's
+   W (k = 124), and K8's float32 gate is read on the real ZT / YT of every
+   chunk of the weig path (recorded from one step of it);
 4. el-kernels: the same checks on the middle 128-patch chunk of the 3D
    elasticity configuration (real operators, C = 3): K6 at each leaf of
    the Schur split, K7 on the real band and X, K2 (the register-tiled
@@ -55,8 +57,11 @@ Phases (each prints its numbers; any failure exits non-zero):
    eigenvalues on all 384 W against ``torch.linalg.eigh``'s, both timed
    on all 384, with the cluster size, a second bound at the rows'
    shared-memory traffic and, at the end, its device time per float64
-   refine-3 step); K1 on the whole 2187 block is timed beside the split,
-   for the record;
+   refine-3 step); K8 at the float32 path's shape (384, 32, 375) and, in
+   float64, at k = 374 (a cluster per W, no workspace: 4 W compared and
+   timed, the eigenvalues of all 384 against the plain version's), each
+   with the route it took; K1 on the whole 2187 block is timed beside the
+   split, for the record;
 5. e2e-f64: small steps in float64 on the CPU (plain versions) and on the
    card (kernels): 3D refine-2 l=1 diffusion on the Jacobi and on the
    smallk route, and 3D refine-2 l=1 elasticity on the Schur split; u and
@@ -73,20 +78,23 @@ Phases (each prints its numbers; any failure exits non-zero):
    fields within 1e-2;
 8. weig: the main configuration with ``smallk_weig=True`` (K8): one
    first call and one timed call, prolonged field within 1e-2 of main's
-   float64 field;
+   float64 field; then the same in float64 (``weig-f64``, K8 at k = 124),
+   its field against ``main-f64``'s (``WEIG_FIELD_BOUND``);
 9. elasticity: ``BENCH_PROBLEM=elasticity``'s configuration (the main
    one with C = 3 components, Lame fields lam / mu, rhs "1; 1; 1"):
    ``patch_solver="auto"`` must resolve to the Schur split and the
    spectral stage to smallk; one first call and 2 timed calls, K2, K4,
    K5, K6, K7 launched as often as the code path implies; then refine-3
    l=2 (512 patches) in float32 and in float64 (K4 on global columns, K5
-   on a thread-block cluster per W),
-   prolonged fields within 1e-2.
+   on a thread-block cluster per W), and the same two with
+   ``smallk_weig=True`` (K8 four times a step, no K5; each field against
+   the same dtype's path with K5, ``WEIG_FIELD_BOUND``), prolonged fields
+   of each pair within 1e-2.
 
 Every path counts its kernel launches from 0, set just before its first
 call and read just after its last; each K4 row's device time per step of
-its path (launches x device ms) is printed, and K5's on the float64
-refine-3 path (launches x device ms on all 384 W of a chunk).  The
+its path (launches x device ms) is printed, and K5's and K8's on the
+float64 refine-3 paths (launches x device ms on all 384 W of a chunk).  The
 second-to-last line is the JSON kernel table, the last line ``{"ok":
 true, "device": {...}}``.  No JAX is imported.
 """
@@ -138,18 +146,34 @@ SOURCE = {
 }
 _ELASTIC = ("K2 gj_inverse", "K4 mgs_qr", "K5 jacobi_eigh",
             "K6 spd_multirhs_solve", "K7 stencil_trace")
+_ELASTIC_WEIG = ("K2 gj_inverse", "K4 mgs_qr", "K6 spd_multirhs_solve",
+                 "K7 stencil_trace", "K8 weig")
+_MAIN = ("K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace",
+         "K4 mgs_qr", "K5 jacobi_eigh")
+_WEIG = ("K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace",
+         "K4 mgs_qr", "K8 weig")
 PATH_KERNELS = {
     "jacobi": ("K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace",
                "K5 jacobi_eigh"),
-    "main": ("K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace",
-             "K4 mgs_qr", "K5 jacobi_eigh"),
-    "weig": ("K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace",
-             "K4 mgs_qr", "K8 weig"),
+    "main": _MAIN,
+    "weig": _WEIG,
     "elasticity": _ELASTIC,
     "elasticity-r3-f32": _ELASTIC,
     "elasticity-r3-f64": _ELASTIC,
-    "main-f64": ("K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace",
-                 "K4 mgs_qr", "K5 jacobi_eigh"),
+    "main-f64": _MAIN,
+    "weig-f64": _WEIG,
+    "elasticity-r3-weig-f32": _ELASTIC_WEIG,
+    "elasticity-r3-weig-f64": _ELASTIC_WEIG,
+}
+# a weig path's prolonged field against the same dtype's path with K5 on
+# the symmetrized W (the weig path -> (that path, bound)): each bound is 10x
+# the difference that K8's previous design (a warp per pair on the W built
+# in float32 / float64 sums) gave on an NVIDIA H100 80GB HBM3 (1.084e-12,
+# 5.708e-07, 1.004e-05; PERF.md section 6)
+WEIG_FIELD_BOUND = {
+    "weig-f64": ("main-f64", 1.084e-11),
+    "elasticity-r3-weig-f32": ("elasticity-r3-f32", 5.708e-06),
+    "elasticity-r3-weig-f64": ("elasticity-r3-f64", 1.004e-04),
 }
 
 
@@ -498,6 +522,133 @@ def k5_sweep_report(name, make, sweeps, tol, dtypes=("float32", "float64")):
     print(f"[kernels] {name}: sweeps per matrix: " + "; ".join(parts))
 
 
+def k8_fns(sweeps, tol):
+    """K8 on (ZT, YT) -> the sorted eigenpairs (each matrix stops on its
+    own): (kernel, plain version with block=1)."""
+    from dealii_slod_tpu_torch.ops import eig
+    return (lambda z, y: eig.weig(z, y, sweeps=sweeps, tol=tol),
+            lambda z, y: eig.weig_plain(z, y, sweeps=sweeps, tol=tol,
+                                        block=1))
+
+
+def k8_counts(ZT, YT, sweeps, tol):
+    """The sweeps each matrix ran in K8 (None: a checkout whose K8 reports
+    none)."""
+    from dealii_slod_tpu_torch.ops import eig
+    if not hasattr(eig, "_weig_cuda"):
+        return None
+    return eig._weig_cuda(ZT.contiguous(), YT.contiguous(), sweeps, tol,
+                          eig._default_null_rel(ZT.dtype),
+                          counts=True)[2].long().cpu()
+
+
+def k8_work(ZT, YT, sweeps, tol):
+    """K8's work on (ZT, YT) (B, k, n): (FLOPs, bytes) of the build (2 k^2
+    n a matrix) and of the sweeps this input needs under the per-matrix
+    stop (counted by the plain loop on W = ZT YT^T), each input read once,
+    the eigenpairs written once."""
+    import torch
+    from dealii_slod_tpu_torch.ops import eig
+    B, k, n = ZT.shape
+    c = jacobi_sweep_counts(torch.bmm(ZT, YT.mT), sweeps, tol,
+                            eig._default_null_rel(ZT.dtype))
+    print(f"[kernels]   sweeps per matrix on the {str(ZT.dtype)[6:]} input: "
+          f"mean {float(c.double().mean()):.2f}, max {int(c.max())}")
+    return (B * 2.0 * k * k * n + sweep_flops(c, k),
+            B * ZT.element_size() * (2 * k * n + k * k + k))
+
+
+def k8_sweep_report(name, make, sweeps, tol, dtypes=("float32", "float64")):
+    """The sweeps each matrix of K8's input ``make(dtype)`` ran in the
+    kernel beside the plain version's (block=1, on W = ZT YT^T of the same
+    dtype), as ``k5_sweep_report`` does for K5; for float32 inputs also
+    beside the plain version's on them cast to float64 (K8 sweeps in
+    float64)."""
+    import torch
+    from dealii_slod_tpu_torch.ops import eig
+    parts = []
+    for dt in dtypes:
+        z, y = make(getattr(torch, dt))
+        kc = k8_counts(z, y, sweeps, tol)
+        if kc is None:
+            print(f"[kernels] {name}: this checkout's K8 reports no sweep "
+                  "counts")
+            return
+        pc = jacobi_sweep_counts(torch.bmm(z, y.mT), sweeps, tol,
+                                 eig._default_null_rel(z.dtype))
+        msg = (f"{dt[5:]}-bit kernel mean {float(kc.double().mean()):.2f} "
+               f"max {int(kc.max())}, plain mean "
+               f"{float(pc.double().mean()):.2f} max {int(pc.max())}, "
+               f"{int((kc != pc).sum())} of {len(kc)} matrices differ")
+        if z.dtype == torch.float32:
+            p64 = jacobi_sweep_counts(
+                torch.bmm(z.double(), y.double().mT), sweeps, tol,
+                eig._default_null_rel(torch.float64))
+            msg += (f" (from the plain version on the inputs in float64: "
+                    f"{int((kc != p64).sum())})")
+        parts.append(msg)
+    print(f"[kernels] {name}: sweeps per matrix: " + "; ".join(parts))
+
+
+def k8_gate_all_chunks(sweeps, tol):
+    """K8's float32 gate (error against the float64 plain version <= 4x the
+    float32 plain version's + 1e-6, ``k5_err``) on the real ZT / YT of
+    every chunk of the float32 weig path, recorded from one step of that
+    path (the float64 plain version runs on them cast to float64); beside
+    it, per chunk, the sweeps each matrix ran in the kernel, the float32
+    and the float64 plain versions (block=1).  Prints the worst
+    error-to-gate ratio and the count differences; fails where a ratio
+    exceeds 1."""
+    import torch
+    from dealii_slod_tpu_torch.ops import eig
+    s = make_solver(bench_cfg("float32", smallk_weig=True), False)
+    s.assemble_fine_rhs()
+    step = s.build_step()
+    seen, weig = [], eig.weig
+
+    def record(ZT, YT, *a, **kw):
+        seen.append((ZT.clone(), YT.clone()))
+        return weig(ZT, YT, *a, **kw)
+
+    eig.weig = record
+    try:
+        step(s.coef_q, s.fem_rhs)
+    finally:
+        eig.weig = weig
+    kern, plain = k8_fns(sweeps, tol)
+    n_rel64 = eig._default_null_rel(torch.float64)
+    n_rel32 = eig._default_null_rel(torch.float32)
+    worst, diff_k32, diff_k64, diff_32_64, n_mat = (0.0, None), 0, 0, 0, 0
+    for i, (zt, yt) in enumerate(seen):
+        z64, y64 = zt.double(), yt.double()
+        ref = plain(z64, y64)
+        e, base = k5_err(kern(zt, yt), ref), k5_err(plain(zt, yt), ref)
+        g = 4 * base + 1e-6
+        if e / g >= worst[0]:
+            worst = (e / g, i, e, g)
+        kc = k8_counts(zt, yt, sweeps, tol)
+        p32 = jacobi_sweep_counts(torch.bmm(zt, yt.mT), sweeps, tol, n_rel32)
+        p64 = jacobi_sweep_counts(torch.bmm(z64, y64.mT), sweeps, tol,
+                                  n_rel64)
+        if kc is None:
+            diff_k32 = diff_k64 = "n/a"
+        else:
+            diff_k32 += int((kc != p32).sum())
+            diff_k64 += int((kc != p64).sum())
+        diff_32_64 += int((p32 != p64).sum())
+        n_mat += len(p32)
+    print(f"[kernels] K8 weig: float32 gate on every chunk of the weig path "
+          f"({len(seen)} chunks, {n_mat} W): worst error / gate "
+          f"{worst[0]:.4f} at chunk {worst[1]} (err {worst[2]:.3e}, gate "
+          f"{worst[3]:.3e}); sweeps per matrix: the kernel differs from the "
+          f"float32 plain version on {diff_k32} W and from the float64 one "
+          f"on {diff_k64}, the two plain versions on {diff_32_64}")
+    check(len(seen) == -(-s.topo.n_patches // s.cfg.patch_chunk),
+          f"K8 weig: {len(seen)} chunks recorded from the weig path")
+    check(worst[0] <= 1.0, f"K8 weig: float32 error over the gate at chunk "
+          f"{worst[1]}")
+
+
 def check_case(table, card, name, shape, make, kern, plain, err, bound, lib,
                path=None, time_dtype="float32", contract=None, f32=True,
                kernel_fn=None):
@@ -754,6 +905,7 @@ def phase_kernels(card):
     sw, st = 8, tab.smallk_tol                  # the W stage's sweeps, tol
     k5w = k5_fns(sw, st)                        # on W
     k5j = k5_fns(tab.sweeps, tab.eig_tol, cD)   # on the factor rows
+    k8 = k8_fns(sw, st)
 
     f4 = 4  # bytes of a float32 (the timed dtype)
     n, kk = A.shape[-1], PT_m.shape[-1]
@@ -814,12 +966,8 @@ def phase_kernels(card):
         "K8 weig": (
             f"ZT, YT ({B}, {k}, {cD})",
             lambda dt: (ZT.to(dt), YT.to(dt)),
-            lambda z, y: eig.weig(z, y, sweeps=sw, tol=st),
-            lambda z, y: eig.weig_plain(z, y, sweeps=sw, tol=st, block=1),
-            k5_err,
-            lambda a: sweeps_bound(torch.bmm(a[0], a[1].mT), sw, st,
-                                   B * 2 * k * k * cD,
-                                   B * f4 * (2 * k * cD + k * k)),
+            k8[0], k8[1], k5_err,
+            lambda a: by(*k8_work(*a, sw, st)),
             None),
     }
     spmm_check("K3 stencil_trace", k3_lib, band, Xp, tab)
@@ -841,6 +989,8 @@ def phase_kernels(card):
             k5_sweep_report(name, W.to, sw, st)
         elif name == "K5 jacobi_eigh [jacobi route]":
             k5_sweep_report(name, factor_rows, tab.sweeps, tab.eig_tol)
+        elif name == "K8 weig":
+            k8_sweep_report(name, make, sw, st)
         if name == "K1 fused_spd_multirhs":
             second_bound(table[-1], card, *k1_work, "bound_ms_3xtf32")
             f32_gate_all_chunks(s, tab, name)
@@ -874,7 +1024,69 @@ def phase_kernels(card):
         path="main-f64", time_dtype="float64", f32=False,
         contract=lambda q, a: qr_contract_err(q, a[0]))
     second_bound(table[-1], card, *k4_work, "bound_ms_f64_cuda_cores")
+
+    # K8 on the float64 main path's factors (k = 124: RegRows' CTA), from
+    # the plain f64 chain with the float64 jitter
+    Gj64 = G + (1e-13 * torch.where(dmax > 0, dmax, 1.0))[..., None] * eye
+    Z64 = eig.mgs_qr_plain(X_it64)
+    Ginv64 = patch_solve.gj_inverse_plain(Gj64)
+    for _ in range(tab.smallk_power - 1):
+        Z64 = eig.mgs_qr_plain(Ginv64 @ Z64)
+    ZT64 = Z64.mT.contiguous()
+    YT64 = ZT64 @ Gj64
+    del Gj64, Ginv64, Z64
+    # K5 on the same W, symmetrized (the main-f64 path's spectral stage;
+    # RegRows' CTA), beside K8
+    W64 = torch.bmm(ZT64, YT64.mT)
+    W64 = (0.5 * (W64 + W64.mT)).contiguous()
+    name = "K5 jacobi_eigh [f64 main]"
+    k5_work64 = (sweep_flops(jacobi_sweep_counts(
+        W64, sw, st, eig._default_null_rel(W64.dtype)), k64),
+        B * 8 * 2 * k64 * k64)
+    check_case(
+        table, card, name, f"W ({B}, {k64}, {k64}), f64 path",
+        lambda dt: (W64.to(dt),), k5w[0], k5w[1], k5_err,
+        lambda a: by(*k5_work64), lambda w: torch.linalg.eigh(w),
+        path="main-f64", time_dtype="float64", f32=False, kernel_fn=k5w[2])
+    second_bound(table[-1], card, *k5_work64, "bound_ms_f64_cuda_cores")
+    k5_sweep_report(name, W64.to, sw, st, dtypes=("float64",))
+    del W64
+    name = "K8 weig [f64 main]"
+    k8_route_check(name, torch.float64, k64, "rows")
+    k8_work64 = k8_work(ZT64, YT64, sw, st)
+    check_case(
+        table, card, name, f"ZT, YT ({B}, {k64}, {cD}), f64 path",
+        lambda dt: (ZT64.to(dt), YT64.to(dt)), k8[0], k8[1], k5_err,
+        lambda a: by(*k8_work64), None, path="weig-f64",
+        time_dtype="float64", f32=False)
+    second_bound(table[-1], card, *k8_work64, "bound_ms_f64_cuda_cores")
+    k8_sweep_report(name, lambda dt: (ZT64.to(dt), YT64.to(dt)), sw, st,
+                    dtypes=("float64",))
+    k8_gate_all_chunks(sw, st)
     return table
+
+
+def k8_route_check(name, dtype, k, expect):
+    """K8's route at k (the launcher's ``slod_weig_route``) is ``expect``
+    and equals the twin ``eig.k8_route``; a checkout without the query (the
+    route before K8 took K5's) is held to nothing.  Returns the route, or
+    None there."""
+    import torch
+    from dealii_slod_tpu_torch.ops import eig
+    from dealii_slod_tpu_torch.utils import kernels
+    if "slod_weig_route" not in getattr(kernels, "_QUERIES", {}):
+        print(f"[kernels] {name}: this checkout's K8 reports no route")
+        return None
+    dev = torch.device("cuda")
+    route = eig.K5_ROUTES[kernels.query("slod_weig_route", dtype, dev, k)]
+    twin = eig.k8_route(k)
+    ws = kernels.workspace("K8", "slod_weig", dtype, dev, 1, k)
+    print(f"[kernels] {name}: route at k = {k} {str(dtype)[6:]}: {route} "
+          f"(twin {twin}), workspace {'none' if ws is None else 'global'}")
+    check(route == expect == twin and (ws is None) == (route != "global rows"),
+          f"{name}: K8 took the {route} route at k = {k} (twin {twin}), "
+          f"not {expect}")
+    return route
 
 
 def split_leaf_operands(A, B, nb):
@@ -1002,10 +1214,11 @@ def phase_el_kernels(card):
         for _ in range(tab.smallk_power):
             Z = eig.mgs_qr_plain(Ginv @ Z)
         W = Z.mT @ Gj @ Z
-        return k, Gj, X_it, 0.5 * (W + W.mT)
+        return k, Gj, X_it, 0.5 * (W + W.mT), Z
 
     sw, st = 8, tab.smallk_tol                  # the W stage's sweeps, tol
     k5, k5_plain, k5_rows = k5_fns(sw, st)
+    k8, k8_plain = k8_fns(sw, st)
 
     from dealii_slod_tpu_torch.utils import kernels
 
@@ -1021,13 +1234,15 @@ def phase_el_kernels(card):
             return None
         return kernels.query("slod_jacobi_rows_cluster", dt, dmax.device, n)
 
-    k32, Gj, X_it, W = smallk_operands(torch.float32, 1e-6)
+    k32, Gj, X_it, W, Z = smallk_operands(torch.float32, 1e-6)
     check(k32 == 32, f"elasticity f32 smallk directions {k32}, expected 32")
     check(rows("K4", torch.float32, "slod_mgs_qr", cD, k32) == "shared"
           and rows("K5", torch.float32, "slod_jacobi_rows", k32) == "shared",
           "the float32 elasticity smallk shapes left shared memory")
     gpiv = Gj[:, :m, :m].contiguous()
-    del Gj
+    ZT = Z.mT.contiguous()
+    YT = ZT @ Gj
+    del Gj, Z
     check_case(
         table, card, "K2 gj_inverse [elasticity G pivot]",
         f"first pivot of G + delta I ({BC}, {m}, {m})",
@@ -1053,9 +1268,20 @@ def phase_el_kernels(card):
         lambda w: torch.linalg.eigh(w), path="elasticity", kernel_fn=k5_rows)
     k5_sweep_report("K5 jacobi_eigh [elasticity]", W.to, sw, st)
     del gpiv, X_it, W
+    name = "K8 weig [elasticity]"
+    k8_route_check(name, torch.float32, k32, "warp")
+    check_case(
+        table, card, name, f"ZT, YT ({BC}, {k32}, {cD})",
+        lambda dt: (ZT.to(dt), YT.to(dt)), k8, k8_plain, k5_err,
+        lambda a: by(*k8_work(*a, sw, st)), None,
+        path="elasticity-r3-weig-f32")
+    k8_sweep_report(name, lambda dt: (ZT.to(dt), YT.to(dt)), sw, st)
+    del ZT, YT
 
-    k64, Gj, X_it, W_all = smallk_operands(torch.float64, 1e-13)
-    del Gj, G
+    k64, Gj, X_it, W_all, Z = smallk_operands(torch.float64, 1e-13)
+    ZT = Z.mT.contiguous()
+    YT = ZT @ Gj
+    del Gj, G, Z
     S = k5_cluster(torch.float64, k64)
     k5_rows_at = rows("K5", torch.float64, "slod_jacobi_rows", k64)
     check(rows("K4", torch.float64, "slod_mgs_qr", cD, k64) == "global",
@@ -1144,6 +1370,44 @@ def phase_el_kernels(card):
               f"{nbytes / 1e9:.3f} GB at {SMS} x {SMEM_BYTES_PER_CLK} B/clk "
               f"x {clk / 1e6:.0f} MHz) {row[key]:.4f} ms "
               f"({100 * row[key] / ms_:.2f}% of {ms_:.3f} ms) [{card}]")
+    del W_all, W
+
+    # K8 on the float64 path's factors at k = 374: each CTA of a cluster
+    # builds the rows its warps hold (no workspace); 4 W compared and
+    # timed, the eigenvalues of all 384 against the plain version's
+    name = "K8 weig [cluster rows]"
+    route = k8_route_check(name, torch.float64, k64, "cluster")
+    ws = kernels.workspace("K8", "slod_weig", torch.float64, dmax.device, 1,
+                           k64)
+    check(route is not None or ws is not None, f"{name}: a checkout without "
+          "K8's route query took no global rows")
+    S8 = k5_cluster(torch.float64, k64) if route == "cluster" else None
+    zs, ys = ZT[sel].contiguous(), YT[sel].contiguous()
+    k8_work4 = k8_work(zs, ys, sw, st)
+    check_case(
+        table, card, name,
+        f"ZT, YT ({nsel} of {BC}, {k64}, {cD}), f64 path",
+        lambda dt: (zs.to(dt), ys.to(dt)), k8, k8_plain, k5_err,
+        lambda a: by(*k8_work4), None, path="elasticity-r3-weig-f64",
+        time_dtype="float64", f32=False)
+    second_bound(table[-1], card, *k8_work4, "bound_ms_f64_cuda_cores")
+    row = table[-1]
+    row["cluster_size"] = S8
+    k8_sweep_report(name, lambda dt: (zs.to(dt), ys.to(dt)), sw, st,
+                    dtypes=("float64",))
+    lam_all = k8(ZT, YT)[0]
+    lam_pl = k8_plain(ZT, YT)[0]
+    e_kp = float(((lam_all - lam_pl).abs() / lam_pl[:, :1]).max())
+    print(f"[kernels] {name}: eigenvalues of all {BC} W against the plain "
+          f"version {e_kp:.3e} of lambda_max (<= 1e-10)")
+    check(e_kp <= 1e-10, f"{name}: eigenvalues of the {BC} W off the plain "
+          f"version's by {e_kp:.3e}")
+    del lam_all, lam_pl
+    row["ms_full_batch"] = cuda_ms(lambda: k8(ZT, YT), 1)
+    row["device_ms_full_batch"] = device_ms(lambda: k8(ZT, YT), 1)
+    print(f"[kernels] {name} on all {BC} W of the chunk, f64: "
+          f"{row['ms_full_batch']:.3f} ms (device "
+          f"{row['device_ms_full_batch']:.3f} ms) [{card}]")
     return table
 
 
@@ -1296,14 +1560,34 @@ def phase_main(profile=False):
     return out, out64, f64
 
 
+def weig_field_check(path, field, fields):
+    """A weig path's prolonged field against the same dtype's path with K5
+    (``WEIG_FIELD_BOUND``): the relative max difference, held to its
+    bound."""
+    other, bound = WEIG_FIELD_BOUND[path]
+    e = rel(field, fields[other])
+    print(f"[{path}] prolonged field vs {other}'s rel max diff {e:.3e} "
+          f"(<= {bound:.3e})")
+    check(e <= bound, f"{path}: prolonged field disagrees with {other}'s")
+
+
 def phase_weig(f64, profile=False):
+    """The main configuration with ``smallk_weig=True`` (K8) in float32,
+    then in float64 (``weig-f64``: K8 at k = 124)."""
     s, out = run_path("weig", bench_cfg("float32", smallk_weig=True),
                       timed=1, profile=profile)
     e = rel(s.prolong_lod_solution().double().cpu(), f64)
     print(f"[weig] prolonged f32 (K8) vs main's f64 rel max diff {e:.3e} "
           f"(<= 1e-2)")
     check(e <= 1e-2, "weig path: prolonged field disagrees with f64")
-    return out
+    del s
+    s64, out64 = run_path("weig-f64", bench_cfg(
+        "float64", eig_solver="smallk", smallk_weig=True), timed=1)
+    weig_field_check("weig-f64", s64.prolong_lod_solution().cpu(),
+                     {"main-f64": f64})
+    print(f"[weig] f64 weig step {out64['steady_wall_s']:.3f} s (first call "
+          f"{out64['first_call_s']:.3f} s)")
+    return out, out64
 
 
 def phase_elasticity(profile=False):
@@ -1317,18 +1601,25 @@ def phase_elasticity(profile=False):
           f"spectral stage {s.spec_mode!r}, not 'fused_split' / 'smallk'")
     paths, fields = {"elasticity": out}, {}
     del s
-    for dtype in ("float32", "float64"):
-        path = f"elasticity-r3-f{dtype[5:]}"
-        kw = dict(eig_solver="smallk") if dtype == "float64" else {}
-        si, paths[path] = run_path(path, elastic_cfg(
-            dtype, n_global_refinements=3, **kw), timed=1, elastic=True)
-        fields[dtype] = si.prolong_lod_solution().double().cpu()
-        del si
-    e = rel(fields["float32"], fields["float64"])
-    print(f"[elasticity] refine-3 l=2 (512 patches): f64 step "
-          f"{paths['elasticity-r3-f64']['steady_wall_s']:.3f} s; prolonged "
-          f"f32 vs f64 rel max diff {e:.3e} (<= 1e-2)")
-    check(e <= 1e-2, "elasticity: f32 and f64 prolonged fields disagree")
+    for weig in ("", "weig-"):
+        for dtype in ("float32", "float64"):
+            path = f"elasticity-r3-{weig}f{dtype[5:]}"
+            kw = dict(eig_solver="smallk") if dtype == "float64" else {}
+            si, paths[path] = run_path(path, elastic_cfg(
+                dtype, n_global_refinements=3, smallk_weig=bool(weig), **kw),
+                timed=1, elastic=True)
+            fields[path] = si.prolong_lod_solution().double().cpu()
+            del si
+            if weig:
+                weig_field_check(path, fields[path], fields)
+    for weig in ("", "weig-"):
+        f32, f64 = (f"elasticity-r3-{weig}f{b}" for b in (32, 64))
+        e = rel(fields[f32], fields[f64])
+        print(f"[elasticity] refine-3 l=2 (512 patches){' weig' * bool(weig)}"
+              f": f64 step {paths[f64]['steady_wall_s']:.3f} s; prolonged "
+              f"f32 vs f64 rel max diff {e:.3e} (<= 1e-2)")
+        check(e <= 1e-2, f"elasticity{' weig' * bool(weig)}: f32 and f64 "
+              "prolonged fields disagree")
     return paths
 
 
@@ -1383,7 +1674,7 @@ def main():
         if "main" in phases:
             paths["main"], paths["main-f64"], f64 = phase_main(args.profile)
         if "weig" in phases and f64 is not None:
-            paths["weig"] = phase_weig(f64, args.profile)
+            paths["weig"], paths["weig-f64"] = phase_weig(f64, args.profile)
         if "elasticity" in phases:
             paths.update(phase_elasticity(args.profile))
     except Exception as exc:                     # any phase failure
@@ -1406,8 +1697,9 @@ def main():
             # the row's full batch is the path's launch (all W of a chunk)
             per = paths[row["path"]]["per_step"].get(row["kernel"], 0)
             dev = row["device_ms_full_batch"]
-            print(f"[K5] {row['name']}: device time per {row['path']} step "
-                  f"{per:g} x {dev:.3f} ms = {per * dev:.3f} ms [{card}]")
+            print(f"[{row['kernel'][:2]}] {row['name']}: device time per "
+                  f"{row['path']} step {per:g} x {dev:.3f} ms = "
+                  f"{per * dev:.3f} ms [{card}]")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",

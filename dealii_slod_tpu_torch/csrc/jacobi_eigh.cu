@@ -15,7 +15,7 @@
 // 32 x 32 W: ~2 sweeps of 31 rounds; the 126 x 126 factor rows: up to 11
 // sweeps of 125; the float64 elasticity W, 374 x 374: ~5-6 sweeps of 373).
 // So the design removes what stands between two rounds.  Three routines,
-// chosen by n and the type in launch_jacobi:
+// chosen by n and the type alone (jacobi_route):
 //
 // * n = 32 (the smallk stage's W): one warp per matrix, no shared rows and
 //   no CTA barrier.  Lane l holds element l of every row (column l of the
@@ -79,7 +79,7 @@
 //   rows an SM moves a round, the shorter the round).  The route takes
 //   n <= 384 (12 values of a row a lane; the rows of 16 CTAs' registers).
 //   Beyond, LoopRows walks the rows in a per-CTA slice of a global
-//   workspace the caller allocates (k5_ws_elems decides; no path runs
+//   workspace the caller allocates (jacobi_route decides; no path runs
 //   it).
 
 // All routines run the plain version's rounds in its order (the same
@@ -96,20 +96,39 @@
 // K8 replaces dealii_slod_tpu/ops/eig.py: weig_pallas, which builds
 // W[i, j] = sum_l ZT[i, l] YT[j, l] inside the kernel (W = Z^T G Z of the
 // smallk stage, NOT symmetrized) and sweeps it in the same launch.  What
-// bounds it: the same sweep latency chain on a (k, k) W; the build is
-// k^2 n FMAs (32 x 32 x 125 per matrix in f32), small.  Design: one CTA per
-// matrix, one warp per W entry reads a row of ZT and a row of YT straight
-// from global memory (coalesced; the two inputs, 32 KB per matrix in f32
-// and 248 KB in f64 at k = 124, stay in L2 and would not fit in shared
-// memory next to W at f64) and writes the warp-reduced dot into the shared
-// row buffer that the CTA routine above then sweeps, with a warp per pair
-// walking the rows (LoopRows) at every k: in RegRows' float32 order of
-// summation some of the main path's W (not symmetric) stop a sweep apart
-// from the plain version and miss the float32 gate.  The TPU kernel shared
-// its stop over the whole batch (grid = ()); here each matrix stops on its
-// own.  K8 always writes the sorted eigenpairs.
+// bounds it: the same sweep latency chain on a (k, k) W; the build is k^2
+// nf FMAs (32 x 32 x 125 per matrix on the main path; 40 GFLOP on the 384
+// float64 W at k = 374), small beside the sweeps.  Design: K8 takes K5's
+// float64 route at row length k (jacobi_route) and builds W in the same
+// launch straight into the storage that route sweeps (FactorSrc), never as
+// a matrix in global memory: at k = 32 the warp forms W on the tensor
+// cores (DMMA) from chunks of ZT and YT staged in its own shared memory
+// and hands it over there so that lane l holds column l (its V leaves
+// through the same memory in coalesced rows); at k <= 128 (the float64
+// k = 124) the CTA forms the padded rows in shared memory by a tiled
+// product over chunks of nf staged for the whole CTA (ZT and YT, 248 KB at
+// k = 124, do not fit beside the 128 KB of rows); at k = 374 each CTA of
+// the cluster builds the rows its warps hold into their registers, in the
+// route's layout, from chunks of its ZT rows and of YT staged in the
+// memory its inboxes later use, so the route needs no workspace.  K8
+// builds and sweeps in float64 at either input type (with that type's eps
+// and null_rel) and rounds only the eigenpairs to it: in float32
+// arithmetic the adaptive stop falls a sweep apart from the float64 plain
+// version's on ~0.4% of the main path's W,
+// whatever the order of summation (the rows' own rounding, ~1e-6 of their
+// norms after a few dozen rotations, moves a pair's squared cosine by
+// ~1e-3 of itself near tol; summing the pair dots or the norms in float64
+// did not change that), and a matrix that stops a sweep early put its
+// chunk up to 7x over the float32 gate (error against the float64 plain
+// version <= 4x the float32 plain version's + 1e-6; chip_smoke.py reads it
+// on every chunk of the weig path).  In float64 the kernel stops where the
+// float64 plain version does.  The TPU kernel shared its stop over the
+// whole batch (grid = ()); here each matrix stops on its own.  K8 always
+// writes the sorted eigenpairs.
 
 #include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -231,6 +250,371 @@ __device__ __forceinline__ int cat_index(int s, int m) {
   return (s & 1) ? m + (s >> 1) : (s >> 1);
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// one value from global to shared memory, asynchronously (4 or 8 bytes:
+// rows of 125 / 375 float32 values lie only on 4-byte boundaries)
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"((int)sizeof(T))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// d += a b on the tensor cores (DMMA): an 8 x 8 float64 tile, k = 4
+__device__ __forceinline__ void dmma(double* d, double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1}, {%2}, {%3}, {%0,%1};"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+// ---------------------------------------------------------------------------
+// Where the rows come from.  K5 reads them (RowsSrc: G (B, n, n)); K8
+// builds them (FactorSrc: W = ZT YT^T from ZT, YT (B, n, nf), W[i, j] =
+// ZT[i] . YT[j], not symmetrized) straight into the storage each routine
+// sweeps: the n = 32 routine's registers (fill_warp32), the CTA routine's
+// rows (fill_rows), the cluster route's registers (fill_cluster).  The
+// *_stage members give the dynamic shared memory a fill stages in (bytes).
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct RowsSrc {
+  using Out = T;
+  static constexpr bool kRsqrt = false;   // the n = 32 rotation's form
+  const T* G;
+  static size_t warp32_stage() { return 0; }
+  template <class R>
+  static size_t rows_stage() { return 0; }
+  static size_t cluster_stage(int, int) { return 0; }
+
+  __device__ __forceinline__ T* vtile(unsigned char*, int) const {
+    return nullptr;
+  }
+  // x[s]: element `lane` of row s of matrix b
+  __device__ __forceinline__ void fill_warp32(T* x, int b, int lane, int,
+                                              unsigned char*) const {
+    const T* g = G + (size_t)b * 32 * 32;
+#pragma unroll
+    for (int s = 0; s < 32; ++s) x[s] = g[s * 32 + lane];
+  }
+  // the n rows of matrix b at stride R::ld(n), columns n .. ld - 1 zero
+  template <class R>
+  __device__ __forceinline__ void fill_rows(T* X, int n, int b,
+                                            unsigned char*) const {
+    const int ld = R::ld(n);
+    const T* g = G + (size_t)b * n * n;
+    for (int e = threadIdx.x; e < n * ld; e += blockDim.x) {
+      const int r = e / ld, l = e - r * ld;
+      X[e] = l < n ? g[r * n + l] : T(0);
+    }
+  }
+  // the cluster route's four rows of a warp (pairs p0, p1; see
+  // jacobi_cluster_kernel), lane's elements col(j), zero beyond n
+  template <int J, class Col>
+  __device__ __forceinline__ void fill_cluster(T* t0, T* b0, T* t1, T* b1,
+                                               Col col, int b, int n, int p0,
+                                               int p1, int, int,
+                                               unsigned char*) const {
+    const int m = n / 2;
+    const bool act = p0 < m, has1 = p1 < m;
+    const T* g = G + (size_t)b * n * n;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = col(j);
+      const bool ok = c < n;
+      t0[j] = ok && act ? g[(size_t)(2 * p0) * n + c] : T(0);
+      b0[j] = ok && act ? g[(size_t)(2 * p0 + 1) * n + c] : T(0);
+      t1[j] = ok && has1 ? g[(size_t)(2 * p1) * n + c] : T(0);
+      b1[j] = ok && has1 ? g[(size_t)(2 * p1 + 1) * n + c] : T(0);
+    }
+  }
+};
+
+// K8's build: W = ZT YT^T from ZT, YT (B, n, nf) of type In (float32 or
+// float64) into float64 rows (K8 sweeps in float64 at either input type,
+// see the note at the top).  Every W entry is a dot of length nf summed in
+// float64, by FMAs or by DMMA (which rounds as a chain of FMAs does; the
+// products of float32 inputs are exact); the factors reach shared memory
+// by cp.async, a value at a time (rows of 125 / 375 float32 values lie only
+// on 4-byte boundaries), in chunks of nf.
+template <typename In>
+struct FactorSrc {
+  using Out = In;
+  // the n = 32 routine's rotation form (rotation): the cosine as
+  // rsqrt(1 + t^2), as the plain version writes it
+  static constexpr bool kRsqrt = true;
+  const In* ZT;
+  const In* YT;
+  int nf;
+  static constexpr int WI = 16 / (int)sizeof(In);   // inputs in 16 bytes
+
+  // n = 32: the warp forms its matrix's W on the tensor cores (DMMA,
+  // mma.m8n8k4.f64: a 4 x 4 grid of 8 x 8 tiles, 16 products a k-step of
+  // 4, each tile's sum rounded as a chain of FMAs in the order of l) from
+  // chunks of WFC values of ZT's and YT's rows staged in its own shared
+  // memory, WNS buffers (the next chunks' copies in flight while one is
+  // summed; stride 36: fragment loads without bank conflicts), then
+  // passes the tiles through shared memory so that lane l holds column l,
+  // x[s] = W[s, l] = ZT[s] . YT[l], the layout the routine sweeps.
+  static constexpr int WFC = 32, WLD = 36, WLDW = 40;
+  static constexpr int WNS = sizeof(In) == 4 ? 4 : 2;    // 74 / 147 KB a CTA
+  static constexpr int WSTAGE = 2 * 32 * WLD;            // In values
+  static constexpr size_t WWARP = WNS * WSTAGE * sizeof(In);
+  static_assert(WWARP >= 32 * WLDW * sizeof(double), "W fits the stages");
+  static size_t warp32_stage() { return (size_t)WARP_MATS * WWARP; }
+  // the finalize's tile for V (finalize_warp): warp w's stages, free again
+  __device__ __forceinline__ double* vtile(unsigned char* smem, int w) const {
+    return reinterpret_cast<double*>(smem + (size_t)w * WWARP);
+  }
+  __device__ __forceinline__ void fill_warp32(double* x, int b, int lane,
+                                              int w,
+                                              unsigned char* smem) const {
+    constexpr int N = 32;
+    In* st = reinterpret_cast<In*>(smem + (size_t)w * WWARP);
+    const In* zt = ZT + (size_t)b * N * nf;
+    const In* yt = YT + (size_t)b * N * nf;
+    // rows of ZT then of YT, value c0 + lane of each to column lane
+    auto fetch = [&](int c0, In* s) {
+      if (c0 + lane < nf) {
+        for (int r = 0; r < N; ++r) {
+          cp_async(s + r * WLD + lane, zt + (size_t)r * nf + c0 + lane);
+          cp_async(s + (N + r) * WLD + lane, yt + (size_t)r * nf + c0 + lane);
+        }
+      }
+      cp_async_commit();
+    };
+    const int fr = lane >> 2, fk = lane & 3;   // a fragment's row, k
+    double acc[4][4][2];
+#pragma unroll
+    for (int R = 0; R < 4; ++R)
+#pragma unroll
+      for (int C = 0; C < 4; ++C) acc[R][C][0] = acc[R][C][1] = 0.0;
+#pragma unroll
+    for (int c = 0; c < WNS - 1; ++c) fetch(c * WFC, st + c * WSTAGE);
+    for (int c0 = 0, ci = 0; c0 < nf; c0 += WFC, ++ci) {
+      // chunk ci + WNS - 1 (an empty group past the end), then chunk ci in
+      fetch(c0 + (WNS - 1) * WFC, st + (ci + WNS - 1) % WNS * WSTAGE);
+      cp_async_wait<WNS - 1>();
+      __syncwarp();
+      const In* zs = st + ci % WNS * WSTAGE;
+      const In* ys = zs + N * WLD;
+      const int nc = min(WFC, nf - c0);
+      for (int k0 = 0; k0 < nc; k0 += 4) {
+        const bool in = k0 + fk < nc;           // beyond: zero
+        double a[4], bb[4];
+#pragma unroll
+        for (int R = 0; R < 4; ++R) {
+          a[R] = in ? (double)zs[(8 * R + fr) * WLD + k0 + fk] : 0.0;
+          bb[R] = in ? (double)ys[(8 * R + fr) * WLD + k0 + fk] : 0.0;
+        }
+#pragma unroll
+        for (int R = 0; R < 4; ++R)
+#pragma unroll
+          for (int C = 0; C < 4; ++C) dmma(acc[R][C], a[R], bb[C]);
+      }
+      __syncwarp();             // this chunk's reads are done
+    }
+    // tile (R, C): lane holds W[8 R + fr][8 C + 2 fk + {0, 1}]
+    double* ws = reinterpret_cast<double*>(st);
+#pragma unroll
+    for (int R = 0; R < 4; ++R)
+#pragma unroll
+      for (int C = 0; C < 4; ++C)
+        *reinterpret_cast<Pair<double>*>(ws + (8 * R + fr) * WLDW + 8 * C +
+                                         2 * fk) =
+            Pair<double>{acc[R][C][0], acc[R][C][1]};
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < N; ++s) x[s] = ws[s * WLDW + lane];
+  }
+
+  // The CTA routine.  RegRows (rows padded to 128): a tiled product, a
+  // warp 8 rows by the 128 columns lane + 32 j, summed in registers over
+  // chunks of RFC values staged for the whole CTA as zs[i][r] = ZT[r][c0 +
+  // i] and ys[i][c] = YT[c][c0 + i] (rows n .. 127 zero: W's pad columns).
+  // LoopRows: a warp per W entry, read from global memory.
+  static constexpr int RFC = 32, RB = 8;
+  template <class R>
+  static size_t rows_stage() {
+    if constexpr (R::kPadded)
+      return (size_t)2 * RFC * (R::LD + WI) * sizeof(In);
+    else
+      return 0;
+  }
+  template <class R>
+  __device__ __forceinline__ void fill_rows(double* X, int n, int b,
+                                            unsigned char* smem) const {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int nw = blockDim.x >> 5;
+    const In* zt = ZT + (size_t)b * n * nf;
+    const In* yt = YT + (size_t)b * n * nf;
+    if constexpr (!R::kPadded) {
+      for (int e = warp; e < n * n; e += nw) {
+        const In* z = zt + (size_t)(e / n) * nf;
+        const In* y = yt + (size_t)(e % n) * nf;
+        double s = 0.0;
+        for (int l = lane; l < nf; l += 32)
+          s = fma((double)z[l], (double)y[l], s);
+        s = slod::warp_sum(s);
+        if (lane == 0) X[e] = s;
+      }
+    } else {
+      constexpr int LD = R::LD, SLD = LD + WI;
+      In* zs = reinterpret_cast<In*>(smem);
+      In* ys = zs + RFC * SLD;
+      for (int e = tid; e < RFC * (LD - n); e += blockDim.x) {
+        const int i = e / (LD - n), r = n + e % (LD - n);
+        zs[i * SLD + r] = In(0);
+        ys[i * SLD + r] = In(0);
+      }
+      const int nrb = (n + RB - 1) / RB;
+      const int passes = (nrb + nw - 1) / nw;
+      for (int p = 0; p < passes; ++p) {
+        const int rb = warp + p * nw;
+        double acc[RB][4];
+#pragma unroll
+        for (int a = 0; a < RB; ++a)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[a][j] = 0.0;
+        for (int c0 = 0; c0 < nf; c0 += RFC) {
+          const int nc = min(RFC, nf - c0);
+          __syncthreads();      // the previous chunk's reads are done
+          for (int e = tid; e < n * nc; e += blockDim.x) {
+            const int r = e / nc, i = e - r * nc;
+            cp_async(zs + i * SLD + r, zt + (size_t)r * nf + c0 + i);
+            cp_async(ys + i * SLD + r, yt + (size_t)r * nf + c0 + i);
+          }
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          if (rb < nrb) {
+            for (int i = 0; i < nc; ++i) {
+              const slod::Vec16<In>* zr =
+                  reinterpret_cast<const slod::Vec16<In>*>(zs + i * SLD +
+                                                           rb * RB);
+              double z[RB], y[4];
+#pragma unroll
+              for (int v = 0; v < RB / WI; ++v) {
+                const slod::Vec16<In> zz = zr[v];
+#pragma unroll
+                for (int e = 0; e < WI; ++e) z[v * WI + e] = zz.v[e];
+              }
+#pragma unroll
+              for (int j = 0; j < 4; ++j) y[j] = ys[i * SLD + lane + 32 * j];
+#pragma unroll
+              for (int a = 0; a < RB; ++a)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  acc[a][j] = fma(z[a], y[j], acc[a][j]);
+            }
+          }
+        }
+        if (rb < nrb) {
+#pragma unroll
+          for (int a = 0; a < RB; ++a) {
+            const int r = rb * RB + a;
+            if (r < n) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                X[(size_t)r * LD + lane + 32 * j] = acc[a][j];
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // The cluster route: each CTA builds the 2 P rows its warps hold (rows
+  // rank 2 P + 4 w .. + 3 on warp w), lane l its elements col(j), in
+  // registers.  Chunks of CFC values are staged for the whole CTA: the
+  // CTA's ZT rows as zs[i][q] = ZT[rank 2 P + q][c0 + i] (a warp's four
+  // values one or two 16-byte broadcasts) and YT as ys[i][c] = YT[c][c0 +
+  // i] (a lane's pair of columns one 16-byte / 8-byte load; columns n ..
+  // 32 J + 1 zero).  The staging lies where the inboxes will be: no CTA
+  // sends a row before every CTA of the cluster has passed the cluster
+  // barrier that follows the build.
+  static constexpr int CFC = 16;
+  static size_t cluster_stage(int P, int J) {
+    return (size_t)CFC * (2 * P + 32 * J + 2) * sizeof(In);
+  }
+  template <int J, class Col>
+  __device__ __forceinline__ void fill_cluster(double* t0, double* b0,
+                                               double* t1, double* b1,
+                                               Col col, int b, int n, int,
+                                               int, int rank, int P,
+                                               unsigned char* smem) const {
+    const int rows = 2 * P, ldy = 32 * J + 2;
+    const int tid = threadIdx.x, warp = tid >> 5;
+    const int r0 = rank * rows;
+    const int here = min(rows, n - r0);    // rows of W in this CTA (> 0)
+    In* zs = reinterpret_cast<In*>(smem);
+    In* ys = zs + CFC * rows;
+    const In* zt = ZT + ((size_t)b * n + r0) * nf;
+    const In* yt = YT + (size_t)b * n * nf;
+    for (int e = tid; e < CFC * (rows - here); e += blockDim.x) {
+      const int i = e / (rows - here);
+      zs[i * rows + here + e - i * (rows - here)] = In(0);
+    }
+    for (int e = tid; e < CFC * (ldy - n); e += blockDim.x) {
+      const int i = e / (ldy - n);
+      ys[i * ldy + n + e - i * (ldy - n)] = In(0);
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) t0[j] = b0[j] = t1[j] = b1[j] = 0.0;
+    for (int c0 = 0; c0 < nf; c0 += CFC) {
+      const int nc = min(CFC, nf - c0);
+      __syncthreads();          // the previous chunk's reads are done
+      for (int e = tid; e < here * nc; e += blockDim.x) {
+        const int q = e / nc, i = e - q * nc;
+        cp_async(zs + i * rows + q, zt + (size_t)q * nf + c0 + i);
+      }
+      for (int e = tid; e < n * nc; e += blockDim.x) {
+        const int c = e / nc, i = e - c * nc;
+        cp_async(ys + i * ldy + c, yt + (size_t)c * nf + c0 + i);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      for (int i = 0; i < nc; ++i) {
+        double z[4];
+        const slod::Vec16<In>* zr =
+            reinterpret_cast<const slod::Vec16<In>*>(zs + i * rows + 4 * warp);
+#pragma unroll
+        for (int v = 0; v < 4 / WI; ++v) {
+          const slod::Vec16<In> zz = zr[v];
+#pragma unroll
+          for (int e = 0; e < WI; ++e) z[v * WI + e] = zz.v[e];
+        }
+        const In* yr = ys + i * ldy;
+#pragma unroll
+        for (int j = 0; j < J; j += 2) {
+          const Pair<In> p = *reinterpret_cast<const Pair<In>*>(yr + col(j));
+          const double y0 = p.x, y1 = p.y;
+          t0[j] = fma(z[0], y0, t0[j]);
+          t0[j + 1] = fma(z[0], y1, t0[j + 1]);
+          b0[j] = fma(z[1], y0, b0[j]);
+          b0[j + 1] = fma(z[1], y1, b0[j + 1]);
+          t1[j] = fma(z[2], y0, t1[j]);
+          t1[j + 1] = fma(z[2], y1, t1[j + 1]);
+          b1[j] = fma(z[3], y0, b1[j]);
+          b1[j + 1] = fma(z[3], y1, b1[j + 1]);
+        }
+      }
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // n = 32: one warp per matrix, the rows in registers
 // ---------------------------------------------------------------------------
@@ -238,11 +622,14 @@ __device__ __forceinline__ int cat_index(int s, int m) {
 // The eigenpairs of matrix b from its final rows x (as in the kernel
 // below): lane l takes slot l's exact norm and its rank in the descending
 // order, then writes element l of every row over its norm into column
-// `rank` of V (row l); ranks >= n0 and lanes >= n0 are dropped.
-template <int N, typename T>
+// `rank` of V (row l); ranks >= n0 and lanes >= n0 are dropped.  Given
+// `tile` (N x (N + 1) values of this warp's shared memory), the rows
+// over their norms (times the norm's reciprocal) go there first, and V
+// leaves in whole rows, one coalesced store a row.
+template <int N, typename T, typename TO>
 __device__ __forceinline__ void finalize_warp(const T* x, int lane, int b,
-                                              int n0, T* __restrict__ lam,
-                                              T* __restrict__ V) {
+                                              int n0, TO* __restrict__ lam,
+                                              TO* __restrict__ V, T* tile) {
   const T lv = sqrt(slot_norm<N>(x, lane));
   const int me = cat_index(lane, N / 2);
   int rank = 0;
@@ -251,33 +638,46 @@ __device__ __forceinline__ void finalize_warp(const T* x, int lane, int b,
     const T lj = __shfl_sync(FULL, lv, j);
     rank += (lj > lv || (lj == lv && cat_index(j, N / 2) < me)) ? 1 : 0;
   }
-  if (rank < n0) lam[(size_t)b * n0 + rank] = lv;
+  if (rank < n0) lam[(size_t)b * n0 + rank] = (TO)lv;
   const T den = lv > T(1e-30) ? lv : T(1e-30);
-  T* vrow = V + ((size_t)b * n0 + lane) * n0;
+  if (tile != nullptr) {
+    const T inv = T(1) / den;
+#pragma unroll
+    for (int s = 0; s < N; ++s) {
+      const int rs = __shfl_sync(FULL, rank, s);
+      tile[lane * (N + 1) + rs] = x[s] * __shfl_sync(FULL, inv, s);
+    }
+    __syncwarp();
+    if (lane < n0)
+      for (int r = 0; r < n0; ++r)
+        V[((size_t)b * n0 + r) * n0 + lane] = (TO)tile[r * (N + 1) + lane];
+    return;
+  }
+  TO* vrow = V + ((size_t)b * n0 + lane) * n0;
 #pragma unroll
   for (int s = 0; s < N; ++s) {
     const int rs = __shfl_sync(FULL, rank, s);
     const T ds = __shfl_sync(FULL, den, s);
-    if (lane < n0 && rs < n0) vrow[rs] = x[s] / ds;
+    if (lane < n0 && rs < n0) vrow[rs] = (TO)(x[s] / ds);
   }
 }
 
-template <typename T>
+template <typename T, class Src>
 __global__ void __launch_bounds__(WARP_MATS * 32)
-    jacobi_rows_warp32(const T* __restrict__ G, T* __restrict__ XTo,
-                       T* __restrict__ XBo, int* __restrict__ counts,
-                       T* __restrict__ lam, T* __restrict__ V, int B, int n0,
+    jacobi_rows_warp32(Src in, T* __restrict__ XTo, T* __restrict__ XBo,
+                       int* __restrict__ counts,
+                       typename Src::Out* __restrict__ lam,
+                       typename Src::Out* __restrict__ V, int B, int n0,
                        int sweeps, T tol, T null_rel, T eps) {
   constexpr int N = 32, M = N / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(16) T bc[WARP_MATS][N];   // (cs, sn) of each pair
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int b = blockIdx.x * WARP_MATS + w;
   if (b >= B) return;
   T* bcw = bc[w];
   T x[N];                     // x[s]: element `lane` of the row in slot s
-  const T* g = G + (size_t)b * N * N;
-#pragma unroll
-  for (int s = 0; s < N; ++s) x[s] = g[s * N + lane];
+  in.fill_warp32(x, b, lane, w, smem_raw);
 
   T nrm = slot_norm<N>(x, lane);
   const T amax2 = warp_max(nrm);
@@ -300,7 +700,7 @@ __global__ void __launch_bounds__(WARP_MATS * 32)
       const T c = reduce_scatter<M>(v, lane);      // pair lane / 2
       const T other = __shfl_xor_sync(FULL, nrm, 1);
       const T a = top ? nrm : other, bn = top ? other : nrm;
-      const Rot<T> r = rotation(c, a, bn, gate, eps, off_w);
+      const Rot<T> r = rotation<T, Src::kRsqrt>(c, a, bn, gate, eps, off_w);
       const T nn = top ? r.cs * r.cs * a - T(2) * r.csnc + r.sn * r.sn * bn
                        : r.sn * r.sn * a + T(2) * r.csnc + r.cs * r.cs * bn;
       __syncwarp();           // the previous round's reads of bcw are done
@@ -333,7 +733,7 @@ __global__ void __launch_bounds__(WARP_MATS * 32)
 
   if (counts != nullptr && lane == 0) counts[b] = it;
   if (lam != nullptr) {
-    finalize_warp<N>(x, lane, b, n0, lam, V);
+    finalize_warp<N>(x, lane, b, n0, lam, V, in.vtile(smem_raw, w));
     return;
   }
   const size_t obase = (size_t)b * M * N;
@@ -386,6 +786,7 @@ struct RegRows {
   // 2 E values a thread want more than the 64 registers of a 1024-thread
   // CTA: cap the CTA at 512 threads (groups then take several pairs)
   static constexpr int MAX_THREADS = 512;
+  static constexpr bool kPadded = true;
   __host__ __device__ static constexpr int ld(int) { return LD; }
   T t[E], b[E];
   slod::Vec16<T>* pt;
@@ -439,6 +840,7 @@ struct RegRows {
 template <typename T>
 struct LoopRows {
   static constexpr int LANES = 32, MAX_THREADS = 1024;
+  static constexpr bool kPadded = false;
   __host__ __device__ static constexpr int ld(int n) { return n; }
   T* pt;
   T* pb;
@@ -471,17 +873,10 @@ struct LoopRows {
   }
 };
 
-// K5's row stride: RegRows' 128 up to n = 128 (every diffusion shape),
-// LoopRows' n beyond.
-template <typename T>
-int k5_ld(int n) {
-  return n <= RegRows<T>::LD ? RegRows<T>::LD : n;
-}
-
 // Shared memory of the CTA routine with rows of stride ld: the rows (unless
 // they are in the global workspace), the norms and the sort order.
 template <typename T>
-size_t rows_smem(int n, int ld, bool global_rows) {
+__host__ __device__ size_t rows_smem(int n, int ld, bool global_rows) {
   return ((global_rows ? 0 : (size_t)n * ld) + n) * sizeof(T) +
          (size_t)n * sizeof(int);
 }
@@ -498,6 +893,11 @@ long long rows_ws_elems(int n, int ld) {
   return (long long)n * n;
 }
 
+// where a fill's staging starts after `bytes` of shared memory
+__host__ __device__ inline size_t stage_offset(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
 inline int cta_threads(int m, int lanes, int max_threads) {
   const int t = (m * lanes + 31) / 32 * 32;
   return t < max_threads ? t : max_threads;
@@ -510,10 +910,10 @@ inline int cta_threads(int m, int lanes, int max_threads) {
 // m x n, m = n / 2, at this CTA's offset), or, given lam, the sorted
 // eigenpairs to lam (n0) and V (n0 x n0).  A group of R::LANES lanes takes
 // each pair.
-template <typename T, class R>
+template <typename T, class R, typename TO>
 __device__ void jacobi_sweeps(T* X, T* nrm, T* __restrict__ XTo,
                               T* __restrict__ XBo, int* counts,
-                              T* __restrict__ lam, T* __restrict__ V, int n,
+                              TO* __restrict__ lam, TO* __restrict__ V, int n,
                               int n0, int sweeps, T tol, T null_rel, T eps) {
   constexpr int G = R::LANES;
   __shared__ T red[32];
@@ -612,12 +1012,12 @@ __device__ void jacobi_sweeps(T* X, T* nrm, T* __restrict__ XTo,
     }
     __syncthreads();
     const size_t lb = (size_t)blockIdx.x * n0;
-    for (int r = tid; r < n0; r += blockDim.x) lam[lb + r] = nrm[ord[r]];
-    T* Vb = V + lb * n0;
+    for (int r = tid; r < n0; r += blockDim.x) lam[lb + r] = (TO)nrm[ord[r]];
+    TO* Vb = V + lb * n0;
     for (int e = tid; e < n0 * n0; e += blockDim.x) {
       const int c = e / n0, i = ord[e - c * n0];
       const T li = nrm[i];
-      Vb[e] = X[(size_t)i * ld + c] / (li > T(1e-30) ? li : T(1e-30));
+      Vb[e] = (TO)(X[(size_t)i * ld + c] / (li > T(1e-30) ? li : T(1e-30)));
     }
     return;
   }
@@ -643,22 +1043,22 @@ __device__ T* carve(unsigned char* smem, int rows_elems, T* gX, T*& nrm) {
   return s;
 }
 
-// K5: rows of G (B, n, n), one CTA per matrix.
-template <typename T, class R>
+// One CTA per matrix: the rows from `in` into X, then the sweeps.  A fill's
+// staging follows the rows, the norms and the sort order in shared memory
+// (at rows_smem(n, ld, gX != null), rounded up to 16 bytes).
+template <typename T, class R, class Src>
 __global__ void __launch_bounds__(R::MAX_THREADS)
-    jacobi_rows_kernel(const T* __restrict__ Gm, T* __restrict__ XTo,
-                       T* __restrict__ XBo, T* gX, int* counts,
-                       T* __restrict__ lam, T* __restrict__ V, int n, int n0,
+    jacobi_rows_kernel(Src in, T* __restrict__ XTo, T* __restrict__ XBo,
+                       T* gX, int* counts, typename Src::Out* __restrict__ lam,
+                       typename Src::Out* __restrict__ V, int n, int n0,
                        int sweeps, T tol, T null_rel, T eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = R::ld(n);
   T* nrm;
   T* X = carve<T>(smem_raw, n * ld, gX, nrm);
-  const T* g = Gm + (size_t)blockIdx.x * n * n;
-  for (int e = threadIdx.x; e < n * ld; e += blockDim.x) {
-    const int r = e / ld, l = e - r * ld;
-    X[e] = l < n ? g[r * n + l] : T(0);
-  }
+  in.template fill_rows<R>(
+      X, n, blockIdx.x,
+      smem_raw + stage_offset(rows_smem<T>(n, ld, gX != nullptr)));
   __syncthreads();
   jacobi_sweeps<T, R>(X, nrm, XTo, XBo, counts, lam, V, n, n0, sweeps, tol,
                       null_rel, eps);
@@ -750,9 +1150,6 @@ __device__ __forceinline__ void cluster_barrier() {
       "barrier.cluster.arrive.release.aligned;\n\t"
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 // the shared::cluster address of shared address `a` in CTA `rank`
 __device__ __forceinline__ unsigned mapa(unsigned a, unsigned rank) {
   unsigned r;
@@ -822,12 +1219,13 @@ __device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
 // whole cluster.  A pair's dot is one warp's: each lane's partial sum
 // over its elements, then the butterfly.  The sweep's `off` and the first
 // sweep's amax2 are cluster maxima (one cluster barrier a sweep).
-template <typename T, int J>
+template <typename T, int J, class Src>
 __global__ void __launch_bounds__(cl_max_threads<T, J>(), 1)
-    jacobi_cluster_kernel(const T* __restrict__ Gm, T* __restrict__ XTo,
-                          T* __restrict__ XBo, int* __restrict__ counts,
-                          T* __restrict__ lam, T* __restrict__ V, int n,
-                          int n0, int S, int P, int ldi, int sweeps, T tol,
+    jacobi_cluster_kernel(Src in, T* __restrict__ XTo, T* __restrict__ XBo,
+                          int* __restrict__ counts,
+                          typename Src::Out* __restrict__ lam,
+                          typename Src::Out* __restrict__ V, int n, int n0,
+                          int S, int P, int ldi, int sweeps, T tol,
                           T null_rel, T eps) {
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -893,16 +1291,8 @@ __global__ void __launch_bounds__(cl_max_threads<T, J>(), 1)
   };
 
   T t0[J], b0[J], t1[J], b1[J];
-  const T* g = Gm + (size_t)b * n * n;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int c = col(j);
-    const bool ok = c < n;
-    t0[j] = ok && act ? g[(size_t)(2 * p0) * n + c] : T(0);
-    b0[j] = ok && act ? g[(size_t)(2 * p0 + 1) * n + c] : T(0);
-    t1[j] = ok && has1 ? g[(size_t)(2 * p1) * n + c] : T(0);
-    b1[j] = ok && has1 ? g[(size_t)(2 * p1 + 1) * n + c] : T(0);
-  }
+  in.template fill_cluster<J>(t0, b0, t1, b1, col, b, n, p0, p1, rank, P,
+                              smem_raw);
   // exact norms^2 of the four rows (zero-padded beyond n: adding 0 changes
   // no partial sum), lane-strided then the warp butterfly
   T na0, nb0, na1, nb1;
@@ -1111,16 +1501,16 @@ __global__ void __launch_bounds__(cl_max_threads<T, J>(), 1)
                                                                       : 0;
   }
   const size_t lb = (size_t)b * n0;
-  T* Vb = V + lb * n0;
+  typename Src::Out* Vb = V + lb * n0;
   auto write = [&](const T* x, int k, T li) {
     const int r = __shfl_sync(FULL, rk, k);
     if (2 * p0 + k >= n || r >= n0) return;
-    if (lane == 0) lam[lb + r] = li;
+    if (lane == 0) lam[lb + r] = (typename Src::Out)li;
     const T den = li > T(1e-30) ? li : T(1e-30);
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int c = col(j);
-      if (c < n0) Vb[(size_t)c * n0 + r] = x[j] / den;
+      if (c < n0) Vb[(size_t)c * n0 + r] = (typename Src::Out)(x[j] / den);
     }
   };
   write(t0, 0, l0);
@@ -1131,14 +1521,18 @@ __global__ void __launch_bounds__(cl_max_threads<T, J>(), 1)
   }
 }
 
-template <typename T, int J>
-int launch_cluster_j(const ClusterPlan& p, const T* G, T* XT, T* XB,
-                     int* counts, T* lam, T* V, int B, int n, int n0,
+template <typename T, int J, class Src>
+int launch_cluster_j(const ClusterPlan& p, const Src& src, T* XT, T* XB,
+                     int* counts, typename Src::Out* lam,
+                     typename Src::Out* V, int B, int n, int n0,
                      int sweeps, T tol, T null_rel, T eps,
                      cudaStream_t stream) {
-  auto kern = jacobi_cluster_kernel<T, J>;
+  auto kern = jacobi_cluster_kernel<T, J, Src>;
   const void* fn = reinterpret_cast<const void*>(kern);
-  cudaError_t err = slod::opt_in_smem(fn, p.smem);
+  const size_t smem = std::max(p.smem, Src::cluster_stage(p.P, J));
+  if (smem > slod::max_smem_optin() - slod::STATIC_SMEM_MARGIN)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = slod::opt_in_smem(fn, smem);
   if (err != cudaSuccess) return (int)err;
   if (p.S > 8) {
     err = cudaFuncSetAttribute(
@@ -1153,7 +1547,7 @@ int launch_cluster_j(const ClusterPlan& p, const T* G, T* XT, T* XB,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * p.S);
   cfg.blockDim = dim3(p.threads);
-  cfg.dynamicSmemBytes = p.smem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -1163,83 +1557,133 @@ int launch_cluster_j(const ClusterPlan& p, const T* G, T* XT, T* XB,
   err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, kern, G, XT, XB, counts, lam, V, n, n0, p.S,
-                           p.P, p.ldi, sweeps, tol, null_rel, eps);
+  err = cudaLaunchKernelEx(&cfg, kern, src, XT, XB, counts, lam, V, n, n0,
+                           p.S, p.P, p.ldi, sweeps, tol, null_rel, eps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_cluster(const ClusterPlan& p, const T* G, T* XT, T* XB,
-                   int* counts, T* lam, T* V, int B, int n, int n0,
-                   int sweeps, T tol, T null_rel, T eps, cudaStream_t stream) {
+template <typename T, class Src>
+int launch_cluster(const ClusterPlan& p, const Src& src, T* XT, T* XB,
+                   int* counts, typename Src::Out* lam, typename Src::Out* V,
+                   int B, int n, int n0, int sweeps, T tol, T null_rel, T eps,
+                   cudaStream_t stream) {
   return p.J == 8
-             ? launch_cluster_j<T, 8>(p, G, XT, XB, counts, lam, V, B, n, n0,
-                                      sweeps, tol, null_rel, eps, stream)
-             : launch_cluster_j<T, 12>(p, G, XT, XB, counts, lam, V, B, n,
-                                       n0, sweeps, tol, null_rel, eps, stream);
+             ? launch_cluster_j<T, 8>(p, src, XT, XB, counts, lam, V, B, n,
+                                      n0, sweeps, tol, null_rel, eps, stream)
+             : launch_cluster_j<T, 12>(p, src, XT, XB, counts, lam, V, B, n,
+                                       n0, sweeps, tol, null_rel, eps,
+                                       stream);
 }
 
-// K8: W = ZT YT^T from ZT, YT (B, k, nf), then the sweeps on W's rows with
-// a warp per pair (LoopRows, see the note at the top), then the sorted
-// eigenpairs to lam (B, k), V (B, k, k).  All 32 warps build W (k^2 dots of
-// length nf); the sweeps take a warp per pair, the rest idle.
-template <typename T>
-__global__ void __launch_bounds__(LoopRows<T>::MAX_THREADS)
-    weig_kernel(const T* __restrict__ ZT, const T* __restrict__ YT,
-                T* __restrict__ lam, T* __restrict__ V, T* gX, int k, int nf,
-                int sweeps, T tol, T null_rel, T eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* nrm;
-  T* X = carve<T>(smem_raw, k * k, gX, nrm);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const size_t base = (size_t)blockIdx.x * k * nf;
-  for (int e = warp; e < k * k; e += nwarps) {
-    const T* z = ZT + base + (size_t)(e / k) * nf;
-    const T* y = YT + base + (size_t)(e % k) * nf;
-    T s = T(0);
-    for (int l = lane; l < nf; l += 32) s += z[l] * y[l];
-    s = slod::warp_sum(s);
-    if (lane == 0) X[e] = s;
-  }
-  __syncthreads();
-  jacobi_sweeps<T, LoopRows<T>>(X, nrm, nullptr, nullptr, nullptr, lam, V,
-                                k, k, sweeps, tol, null_rel, eps);
-}
-
-template <typename T, class R>
-int launch_rows(const T* G, T* XT, T* XB, T* ws, int* counts, T* lam, T* V,
-                int B, int n, int n0, int sweeps, T tol, T null_rel, T eps,
-                size_t smem, cudaStream_t stream) {
+template <typename T, class R, class Src>
+int launch_rows(const Src& src, T* XT, T* XB, T* ws, int* counts,
+                typename Src::Out* lam, typename Src::Out* V, int B, int n,
+                int n0, int sweeps, T tol, T null_rel, T eps,
+                cudaStream_t stream) {
+  const size_t smem =
+      stage_offset(rows_smem<T>(n, R::ld(n), ws != nullptr)) +
+      Src::template rows_stage<R>();
+  if (smem > slod::max_smem_optin() - slod::STATIC_SMEM_MARGIN)
+    return (int)cudaErrorInvalidValue;
   const cudaError_t err = slod::opt_in_smem(
-      reinterpret_cast<const void*>(jacobi_rows_kernel<T, R>), smem);
+      reinterpret_cast<const void*>(jacobi_rows_kernel<T, R, Src>), smem);
   if (err != cudaSuccess) return (int)err;
-  jacobi_rows_kernel<T, R>
+  jacobi_rows_kernel<T, R, Src>
       <<<B, cta_threads(n / 2, R::LANES, R::MAX_THREADS), smem, stream>>>(
-          G, XT, XB, ws, counts, lam, V, n, n0, sweeps, tol, null_rel, eps);
+          src, XT, XB, ws, counts, lam, V, n, n0, sweeps, tol, null_rel, eps);
   return (int)cudaGetLastError();
 }
 
-// K5's workspace elements per matrix: 0 where the rows fit in one CTA's
-// shared memory or in a cluster's (cluster_plan), n * n (LoopRows' global
-// rows) beyond, -1 where no launch takes n.  The route follows: n = 32 the
-// warp routine, n <= 128 RegRows, then LoopRows in shared memory, the
-// cluster, LoopRows on global rows -- picked by n and T alone.
-template <typename T>
-int k5_cluster_size(int n) {
-  return n > RegRows<T>::LD && rows_ws_elems<T>(n, n) > 0
-             ? cluster_plan<T>(n).S
-             : 0;
-}
-template <typename T>
-long long k5_ws_elems(int n) {
-  if (n == 32 || k5_cluster_size<T>(n) > 0) return 0;
-  return rows_ws_elems<T>(n, k5_ld<T>(n));
+template <typename T, class Src>
+int launch_warp32(const Src& src, T* XT, T* XB, int* counts,
+                  typename Src::Out* lam, typename Src::Out* V, int B, int n0,
+                  int sweeps, T tol, T null_rel, T eps, cudaStream_t stream) {
+  const size_t smem = Src::warp32_stage();
+  if (smem > 0) {
+    const cudaError_t err = slod::opt_in_smem(
+        reinterpret_cast<const void*>(jacobi_rows_warp32<T, Src>), smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  jacobi_rows_warp32<T, Src>
+      <<<(B + WARP_MATS - 1) / WARP_MATS, WARP_MATS * 32, smem, stream>>>(
+          src, XT, XB, counts, lam, V, B, n0, sweeps, tol, null_rel, eps);
+  return (int)cudaGetLastError();
 }
 
-// lam / V null: the rows to XT / XB; else the n0 sorted eigenpairs (n0 is
-// n, or n - 1 where the caller padded an odd n with a zero row) to lam, V.
+// The route of K5 and K8 at row length n, picked by n and T alone: n = 32
+// the warp routine; n <= 128 RegRows; LoopRows while its rows fit one
+// CTA's shared memory; then the cluster (cluster_plan); LoopRows on global
+// rows beyond (a workspace of n * n per matrix).  ROUTE_NONE: no launch
+// takes n.  The Python twin is ops/eig.py: k5_route.
+enum Route {
+  ROUTE_NONE = -1,
+  ROUTE_WARP = 0,
+  ROUTE_REG_ROWS = 1,
+  ROUTE_LOOP_ROWS = 2,
+  ROUTE_CLUSTER = 3,
+  ROUTE_GLOBAL_ROWS = 4
+};
+
+template <typename T>
+Route jacobi_route(int n) {
+  if (n < 2 || n % 2) return ROUTE_NONE;
+  if (n == 32) return ROUTE_WARP;
+  if (n <= RegRows<T>::LD)
+    return rows_ws_elems<T>(n, RegRows<T>::LD) == 0 ? ROUTE_REG_ROWS
+                                                   : ROUTE_NONE;
+  const long long ge = rows_ws_elems<T>(n, n);
+  if (ge == 0) return ROUTE_LOOP_ROWS;
+  if (ge < 0) return ROUTE_NONE;
+  return cluster_plan<T>(n).S > 0 ? ROUTE_CLUSTER : ROUTE_GLOBAL_ROWS;
+}
+
+// Elements of global workspace per matrix at row length n: n * n on
+// global rows, 0 on every other route, -1 where no launch takes n.
+template <typename T>
+long long route_ws_elems(int n) {
+  const Route r = jacobi_route<T>(n);
+  return r == ROUTE_NONE ? -1
+         : r == ROUTE_GLOBAL_ROWS ? (long long)n * n
+                                   : 0;
+}
+
+// The launch on n rows from src (lam / V null: the rows to XT / XB; else
+// the n0 sorted eigenpairs to lam, V).
+template <typename T, class Src>
+int launch_route(const Src& src, T* XT, T* XB, T* ws, int* counts,
+                 typename Src::Out* lam, typename Src::Out* V, int B, int n,
+                 int n0, int sweeps, T tol, T null_rel, T eps,
+                 cudaStream_t stream) {
+  switch (jacobi_route<T>(n)) {
+    case ROUTE_WARP:
+      return launch_warp32<T>(src, XT, XB, counts, lam, V, B, n0, sweeps, tol,
+                              null_rel, eps, stream);
+    case ROUTE_REG_ROWS:
+      return launch_rows<T, RegRows<T>>(src, XT, XB, nullptr, counts, lam, V,
+                                        B, n, n0, sweeps, tol, null_rel, eps,
+                                        stream);
+    case ROUTE_LOOP_ROWS:
+      return launch_rows<T, LoopRows<T>>(src, XT, XB, nullptr, counts, lam, V,
+                                         B, n, n0, sweeps, tol, null_rel, eps,
+                                         stream);
+    case ROUTE_CLUSTER:
+      return launch_cluster<T>(cluster_plan<T>(n), src, XT, XB, counts, lam,
+                               V, B, n, n0, sweeps, tol, null_rel, eps,
+                               stream);
+    case ROUTE_GLOBAL_ROWS:
+      if (ws == nullptr) return (int)cudaErrorInvalidValue;
+      return launch_rows<T, LoopRows<T>>(src, XT, XB, ws, counts, lam, V, B,
+                                         n, n0, sweeps, tol, null_rel, eps,
+                                         stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K5: lam / V null: the rows to XT / XB; else the n0 sorted eigenpairs (n0
+// is n, or n - 1 where the caller padded an odd n with a zero row) to lam,
+// V.
 template <typename T>
 int launch_jacobi(void* G, void* XT, void* XB, void* ws, void* counts,
                   void* lam, void* V, int B, int n, int n0, int sweeps,
@@ -1248,45 +1692,25 @@ int launch_jacobi(void* G, void* XT, void* XB, void* ws, void* counts,
   if (lam != nullptr ? (V == nullptr || n0 < n - 1 || n0 > n)
                      : (XT == nullptr || XB == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (n == 32) {
-    jacobi_rows_warp32<T>
-        <<<(B + WARP_MATS - 1) / WARP_MATS, WARP_MATS * 32, 0,
-           (cudaStream_t)stream>>>((const T*)G, (T*)XT, (T*)XB, (int*)counts,
-                                   (T*)lam, (T*)V, B, n0, sweeps, (T)tol,
-                                   (T)null_rel, (T)eps);
-    return (int)cudaGetLastError();
-  }
-  if (k5_cluster_size<T>(n) > 0)
-    return launch_cluster<T>(cluster_plan<T>(n), (const T*)G, (T*)XT,
-                             (T*)XB, (int*)counts, (T*)lam, (T*)V, B, n, n0,
-                             sweeps, (T)tol, (T)null_rel, (T)eps,
-                             (cudaStream_t)stream);
-  const int ld = k5_ld<T>(n);
-  const long long ge = rows_ws_elems<T>(n, ld);
-  if (ge < 0 || (ge > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  auto launch = n <= RegRows<T>::LD ? &launch_rows<T, RegRows<T>>
-                                    : &launch_rows<T, LoopRows<T>>;
-  return launch((const T*)G, (T*)XT, (T*)XB, ge > 0 ? (T*)ws : nullptr,
-                (int*)counts, (T*)lam, (T*)V, B, n, n0, sweeps, (T)tol,
-                (T)null_rel, (T)eps, rows_smem<T>(n, ld, ge > 0),
-                (cudaStream_t)stream);
+  return launch_route<T>(RowsSrc<T>{(const T*)G}, (T*)XT, (T*)XB, (T*)ws,
+                         (int*)counts, (T*)lam, (T*)V, B, n, n0, sweeps,
+                         (T)tol, (T)null_rel, (T)eps, (cudaStream_t)stream);
 }
 
-template <typename T>
-int launch_weig(void* ZT, void* YT, void* lam, void* V, void* ws, int B,
-                int k, int nf, int sweeps, double tol, double null_rel,
-                double eps, void* stream) {
-  if (B <= 0 || k < 2 || k % 2 || nf <= 0) return (int)cudaErrorInvalidValue;
-  const long long ge = rows_ws_elems<T>(k, k);
-  if (ge < 0 || (ge > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  const size_t smem = rows_smem<T>(k, k, ge > 0);
-  const cudaError_t err = slod::opt_in_smem(
-      reinterpret_cast<const void*>(weig_kernel<T>), smem);
-  if (err != cudaSuccess) return (int)err;
-  weig_kernel<T><<<B, LoopRows<T>::MAX_THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)ZT, (const T*)YT, (T*)lam, (T*)V, ge > 0 ? (T*)ws : nullptr,
-      k, nf, sweeps, (T)tol, (T)null_rel, (T)eps);
-  return (int)cudaGetLastError();
+// K8: W = ZT YT^T from ZT, YT (B, k, nf) of type In, built in the launch
+// into the storage of K5's float64 route at k, then its sweeps in float64,
+// then the sorted eigenpairs to lam (B, k), V (B, k, k) in type In; ws (on
+// global rows only) holds float64 values.
+template <typename In>
+int launch_weig(void* ZT, void* YT, void* counts, void* lam, void* V,
+                void* ws, int B, int k, int nf, int sweeps, double tol,
+                double null_rel, double eps, void* stream) {
+  if (B <= 0 || k < 2 || k % 2 || nf <= 0 || lam == nullptr || V == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_route<double>(
+      FactorSrc<In>{(const In*)ZT, (const In*)YT, nf}, nullptr, nullptr,
+      (double*)ws, (int*)counts, (In*)lam, (In*)V, B, k, k, sweeps, tol,
+      null_rel, eps, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -1307,30 +1731,38 @@ int slod_jacobi_rows_f64(void* G, void* XT, void* XB, void* ws, void* counts,
   return launch_jacobi<double>(G, XT, XB, ws, counts, lam, V, B, n, n0,
                                sweeps, tol, null_rel, eps, stream);
 }
-int slod_weig_f32(void* ZT, void* YT, void* lam, void* V, void* ws, int B,
-                  int k, int nf, int sweeps, double tol, double null_rel,
-                  double eps, void* stream) {
-  return launch_weig<float>(ZT, YT, lam, V, ws, B, k, nf, sweeps, tol,
+int slod_weig_f32(void* ZT, void* YT, void* counts, void* lam, void* V,
+                  void* ws, int B, int k, int nf, int sweeps, double tol,
+                  double null_rel, double eps, void* stream) {
+  return launch_weig<float>(ZT, YT, counts, lam, V, ws, B, k, nf, sweeps, tol,
                             null_rel, eps, stream);
 }
-int slod_weig_f64(void* ZT, void* YT, void* lam, void* V, void* ws, int B,
-                  int k, int nf, int sweeps, double tol, double null_rel,
-                  double eps, void* stream) {
-  return launch_weig<double>(ZT, YT, lam, V, ws, B, k, nf, sweeps, tol,
-                             null_rel, eps, stream);
+int slod_weig_f64(void* ZT, void* YT, void* counts, void* lam, void* V,
+                  void* ws, int B, int k, int nf, int sweeps, double tol,
+                  double null_rel, double eps, void* stream) {
+  return launch_weig<double>(ZT, YT, counts, lam, V, ws, B, k, nf, sweeps,
+                             tol, null_rel, eps, stream);
 }
 // workspace elements per matrix of K5 / K8 at row length n (0: the rows
-// fit in shared memory; -1: no launch can take n)
-long long slod_jacobi_rows_ws_f32(int n) { return k5_ws_elems<float>(n); }
-long long slod_jacobi_rows_ws_f64(int n) { return k5_ws_elems<double>(n); }
-// the cluster size K5 takes at row length n (0: not the cluster route)
+// fit in shared memory or in a cluster's registers; -1: no launch can
+// take n)
+long long slod_jacobi_rows_ws_f32(int n) { return route_ws_elems<float>(n); }
+long long slod_jacobi_rows_ws_f64(int n) { return route_ws_elems<double>(n); }
+// K8 sweeps in float64 at either input type: its workspace (float64
+// elements per matrix) and route (Route: -1 none, 0 warp, 1 RegRows, 2
+// LoopRows, 3 cluster, 4 global rows) are K5's float64 ones at k
+long long slod_weig_ws_f32(int k) { return route_ws_elems<double>(k); }
+long long slod_weig_ws_f64(int k) { return route_ws_elems<double>(k); }
+long long slod_weig_route_f32(int k) { return jacobi_route<double>(k); }
+long long slod_weig_route_f64(int k) { return jacobi_route<double>(k); }
+// the cluster size K5 / K8 take at row length n (0: not the cluster route)
 long long slod_jacobi_rows_cluster_f32(int n) {
-  return k5_cluster_size<float>(n);
+  return jacobi_route<float>(n) == ROUTE_CLUSTER ? cluster_plan<float>(n).S
+                                                 : 0;
 }
 long long slod_jacobi_rows_cluster_f64(int n) {
-  return k5_cluster_size<double>(n);
+  return jacobi_route<double>(n) == ROUTE_CLUSTER ? cluster_plan<double>(n).S
+                                                  : 0;
 }
-long long slod_weig_ws_f32(int k) { return rows_ws_elems<float>(k, k); }
-long long slod_weig_ws_f64(int k) { return rows_ws_elems<double>(k, k); }
 
 }  // extern "C"

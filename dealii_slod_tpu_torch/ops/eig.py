@@ -224,6 +224,49 @@ def k5_cluster_plan(n: int, itemsize: int,
                  is not None), None)
 
 
+# the routes of K5 and K8 (csrc/jacobi_eigh.cu: Route, in its order)
+K5_ROUTES = ("warp", "rows", "loop rows", "cluster", "global rows")
+
+
+def k5_route(n: int, itemsize: int):
+    """The route K5 takes at row length n, the twin of
+    ``csrc/jacobi_eigh.cu: jacobi_route``: "warp" at n = 32 (a warp per
+    matrix, rows in registers), "rows" at n <= 128 (RegRows: rows padded
+    to 128 in one CTA's shared memory), "loop rows" while the n x n rows,
+    their norms and the sort order fit one CTA's shared memory, then
+    "cluster" where ``k5_cluster_plan`` lays n out, else "global rows" (a
+    workspace of n * n per matrix); None for odd n or where not even the
+    norms fit."""
+    if n < 2 or n % 2:
+        return None
+    if n == 32:
+        return "warp"
+    lim = H100_SMEM_OPTIN - _STATIC_SMEM_MARGIN
+
+    def rows_smem(ld, global_rows):
+        return ((0 if global_rows else n * ld) + n) * itemsize + 4 * n
+
+    if n <= 128:
+        return "rows" if rows_smem(128, False) <= lim else None
+    if rows_smem(n, False) <= lim:
+        return "loop rows"
+    if rows_smem(n, True) > lim:
+        return None
+    if k5_cluster_plan(n, itemsize) is not None:
+        return "cluster"
+    return "global rows"
+
+
+def k8_route(k: int):
+    """The route K8 takes at k, the twin of ``csrc/jacobi_eigh.cu:
+    launch_weig``: K8 sweeps in float64 at either input type, so it takes
+    K5's float64 route at row length k (``k5_route(k, 8)``), with W built
+    in the launch into that route's storage.  (At every k a path runs, and
+    at the k of ``tests/test_torch_kernels.py::test_k8_route_is_k5_rule``,
+    K5's float32 route is the same.)"""
+    return k5_route(k, 8)
+
+
 def k5_cluster_maps(n: int, plan: dict, r: int):
     """Who holds what in K5's cluster route under ``plan`` at round ``r``:
     (for each pair q its (CTA, warp, which of the warp's two pairs): CTA
@@ -409,17 +452,49 @@ def weig_plain(ZT: torch.Tensor, YT: torch.Tensor, sweeps: int = 8,
     return _finalize_rows(XT, XB, k, (B,))
 
 
+def _weig_cuda(ZT: torch.Tensor, YT: torch.Tensor, sweeps: int, tol: float,
+               null_rel: float, counts: bool = False):
+    """K8's launch on contiguous ZT, YT (B, k, n) on the card -> (lam, V),
+    and with ``counts`` the sweeps each matrix ran (B,) int32 as a third
+    output."""
+    B, k, n = ZT.shape
+    kernels.check_cuda("weig", ZT, YT)
+    lam = torch.empty((B, k), dtype=ZT.dtype, device=ZT.device)
+    V = torch.empty((B, k, k), dtype=ZT.dtype, device=ZT.device)
+    cnt = (torch.empty(B, dtype=torch.int32, device=ZT.device) if counts
+           else None)
+    # K8 works in float64 at either input type: so do its global rows
+    ws = kernels.workspace("K8 weig", "slod_weig", torch.float64, ZT.device,
+                           B, k)
+    kernels.launch("K8 weig", "slod_weig", ZT.dtype, ZT.device,
+                   ZT.data_ptr(), YT.data_ptr(), _ptr(cnt), lam.data_ptr(),
+                   V.data_ptr(), _ptr(ws), B, k, n, sweeps, float(tol),
+                   float(null_rel), _eps(ZT.dtype))
+    return (lam, V, cnt) if counts else (lam, V)
+
+
 def weig(ZT: torch.Tensor, YT: torch.Tensor, sweeps: int = 8,
          tol: float = 0.0, null_rel: float | None = None,
          block: int | None = None):
     """Kernel K8 (replaces ``dealii_slod_tpu/ops/eig.py: weig_pallas``): the
     eigenpairs of W = Z^T Y from the transposed factors ZT, YT (B, k, n),
     k even, for W = Z^T G Z with G SPD.  Returns (eigenvalues descending
-    (B, k), eigenvectors as columns (B, k, k)).  On CUDA one CTA per matrix
-    builds W in its row buffer (shared memory where it fits, a global
-    workspace otherwise), sweeps it there (each matrix stops on its own)
-    and writes the sorted, normalized eigenpairs; ``block`` applies to the
-    plain version only."""
+    (B, k), eigenvectors as columns (B, k, k)).  On CUDA the launch takes
+    K5's float64 route at row length k (``k8_route``) and builds W, not
+    symmetrized, straight into the storage that route sweeps: at k = 32 a
+    warp per matrix forms W on the tensor cores and hands it over so that
+    lane l holds column l; at k <= 128 one CTA per matrix, W's rows formed
+    in shared memory by a tiled product; at k = 374 a thread-block cluster
+    per matrix, each CTA forming the rows its warps hold in registers (no
+    workspace); beyond, a warp per W entry into LoopRows' rows.  W is
+    summed, and swept, in float64 at either input type, and the eigenpairs
+    are rounded to the input type once: in float32 arithmetic (the plain
+    version's, or any order of summation the kernel could take) the
+    adaptive stop falls a sweep apart from the float64 plain version's on
+    a few in a thousand of the main path's W, which puts some chunks over
+    the float32 gate.  Each matrix stops on its own and the kernel writes
+    the sorted, normalized eigenpairs.  ``block`` applies to the plain
+    version only."""
     B, k, n = ZT.shape
     if k % 2 or YT.shape != ZT.shape:
         raise ValueError(f"weig: ZT {tuple(ZT.shape)}, YT {tuple(YT.shape)}"
@@ -429,16 +504,8 @@ def weig(ZT: torch.Tensor, YT: torch.Tensor, sweeps: int = 8,
     if null_rel is None:
         null_rel = _default_null_rel(ZT.dtype)
     kernels.check_cuda("weig", ZT, YT, contiguous=False)
-    ZT, YT = ZT.contiguous(), YT.contiguous()
-    lam = torch.empty((B, k), dtype=ZT.dtype, device=ZT.device)
-    V = torch.empty((B, k, k), dtype=ZT.dtype, device=ZT.device)
-    ws = kernels.workspace("K8 weig", "slod_weig", ZT.dtype, ZT.device, B,
-                           k)
-    kernels.launch("K8 weig", "slod_weig", ZT.dtype, ZT.device,
-                   ZT.data_ptr(), YT.data_ptr(), lam.data_ptr(),
-                   V.data_ptr(), _ptr(ws), B, k, n, sweeps, float(tol),
-                   float(null_rel), _eps(ZT.dtype))
-    return lam, V
+    return _weig_cuda(ZT.contiguous(), YT.contiguous(), sweeps, tol,
+                      null_rel)
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "slod_stencil_trace": "pppiiiiiip",
     "slod_jacobi_rows": "pppppppiiiiddd",
     "slod_mgs_qr": "pppiii",
-    "slod_weig": "pppppiiiiddd",
+    "slod_weig": "ppppppiiiiddd",
 }
 # size queries (no stream; return a long long): global workspace elements
 # per matrix that a launch at these sizes needs, 0 where shared memory
@@ -51,9 +51,11 @@ _QUERIES = {
     "slod_mgs_qr_ws": "ii",
     "slod_jacobi_rows_ws": "i",
     "slod_weig_ws": "i",
-    # not a workspace: the thread-block cluster size of K5's launch at row
-    # length n, 0 where K5 takes another route
+    # not workspaces: the thread-block cluster size of K5's / K8's launch
+    # at row length n, 0 where they take another route; the route K8 takes
+    # at k (csrc/jacobi_eigh.cu: Route; ops/eig.py: K5_ROUTES)
     "slod_jacobi_rows_cluster": "i",
+    "slod_weig_route": "i",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
            "d": ctypes.c_double}

@@ -516,20 +516,81 @@ def test_k5_global_rows_beyond_cluster(cuda):
     assert e_lam <= 1e-10 and e_vec <= 1e-8, (e_lam, e_vec)
 
 
-@pytest.mark.parametrize("k, tol", [(8, 0.0), (32, 3e-6), (124, 3e-6)])
-def test_k8_matches_plain_block1(cuda, k, tol):
+def _weig_like(rng, B, n, k, floor):
+    """Factors as the smallk stage forms them: G (n, n) with eigenvalues
+    logspace(floor, 0) in a random basis, three inverse subspace steps on
+    k directions from a fixed start (Z from QR), ZT = Z^T and YT = ZT G."""
+    Q, _ = np.linalg.qr(rng.standard_normal((B, n, n)))
+    G = (Q * np.logspace(floor, 0, n)) @ Q.transpose(0, 2, 1)
+    Gi = np.linalg.inv(G)
+    Z = np.broadcast_to(np.linalg.qr(rng.standard_normal((n, k)))[0],
+                        (B, n, k))
+    for _ in range(3):
+        Z = np.linalg.qr(Gi @ Z)[0]
+    ZT = np.ascontiguousarray(Z.transpose(0, 2, 1))
+    return torch.from_numpy(ZT), torch.from_numpy(ZT @ G)
+
+
+# (n, k, dtype, tol, inputs): the first three on Grams of random factors
+# (A A^T), the others path-like (_weig_like) at the shapes of the weig
+# paths: main (125, 32), elasticity (375, 32), float64 main (125, 124) and
+# float64 elasticity (375, 374)
+_K8_CASES = [(125, 8, torch.float64, 0.0, "gram"),
+             (125, 32, torch.float64, 3e-6, "gram"),
+             (125, 124, torch.float64, 3e-6, "gram")] + [
+    (n, k, dt, 3e-6, "path") for n, k, dt in [
+        (125, 32, torch.float32), (125, 32, torch.float64),
+        (375, 32, torch.float32), (375, 32, torch.float64),
+        (125, 124, torch.float64), (375, 374, torch.float64)]]
+
+
+@pytest.mark.parametrize("n, k, dtype, tol, inputs", _K8_CASES)
+def test_k8_matches_plain_block1(cuda, n, k, dtype, tol, inputs):
     """W built in the kernel, then the sweeps (each matrix stops on its
-    own, the plain version's block=1)."""
+    own, the plain version's block=1, at most 30 sweeps), on the route
+    ``eig.k8_route`` names (the launcher's ``slod_weig_route``; no
+    workspace except on global rows).  Grams of random factors: eigenvalues
+    within 1e-10, vectors within 1e-8 of the float64 plain version.
+    Path-like factors: float64 as ``test_k5_matches_plain_block1``,
+    float32 within 4x the float32 plain version's error + 1e-6 of the
+    float64 one; the sweeps each matrix ran equal the plain version's on
+    the same inputs in float64, the type K8 sweeps in."""
+    route = eig.k8_route(k)
+    assert eig.K5_ROUTES[kernels.query("slod_weig_route", dtype, cuda,
+                                       k)] == route
+    ws = kernels.workspace("K8", "slod_weig", dtype, cuda, 1, k)
+    assert (ws is not None) == (route == "global rows")
     rng = np.random.default_rng(k)
-    A = rng.standard_normal((5, 125, 125))
-    Z = np.linalg.qr(rng.standard_normal((5, 125, k)))[0]
-    ZT = torch.from_numpy(Z.transpose(0, 2, 1).copy())
-    YT = ZT @ torch.from_numpy(A @ A.transpose(0, 2, 1))
-    lam, U = eig.weig(ZT.to(cuda), YT.to(cuda), sweeps=30, tol=tol)
-    lam_r, U_r = eig.weig_plain(ZT, YT, sweeps=30, tol=tol, block=1)
-    assert rel(lam.cpu(), lam_r) <= 1e-10
-    sgn = torch.sign((U.cpu() * U_r).sum(-2, keepdim=True))
-    assert float((U.cpu() * sgn - U_r).abs().max()) <= 1e-8
+    if inputs == "gram":
+        A = rng.standard_normal((5, n, n))
+        Z = np.linalg.qr(rng.standard_normal((5, n, k)))[0]
+        ZT = torch.from_numpy(Z.transpose(0, 2, 1).copy())
+        YT = ZT @ torch.from_numpy(A @ A.transpose(0, 2, 1))
+        lam, U = eig.weig(ZT.to(cuda), YT.to(cuda), sweeps=30, tol=tol)
+        lam_r, U_r = eig.weig_plain(ZT, YT, sweeps=30, tol=tol, block=1)
+        assert rel(lam.cpu(), lam_r) <= 1e-10
+        sgn = torch.sign((U.cpu() * U_r).sum(-2, keepdim=True))
+        assert float((U.cpu() * sgn - U_r).abs().max()) <= 1e-8
+        return
+    ZT, YT = (t.to(cuda) for t in _weig_like(
+        rng, 3, n, k, -13 if dtype == torch.float64 else -6))
+    ref = eig.weig_plain(ZT, YT, sweeps=30, tol=tol, block=1)
+    zt, yt = ZT.to(dtype), YT.to(dtype)
+    kernels.reset_launch_counts()
+    out = eig.weig(zt, yt, sweeps=30, tol=tol)
+    assert kernels.launches["K8 weig"] == 1
+    sep = 1e-6 if dtype == torch.float64 else 1e-2
+    e_lam, e_vec = _k5_errs(out, ref, sep)
+    if dtype == torch.float64:
+        assert e_lam <= 1e-10 and e_vec <= 1e-8, (e_lam, e_vec)
+    else:
+        plain = eig.weig_plain(zt, yt, sweeps=30, tol=tol, block=1)
+        base = max(_k5_errs(plain, ref, sep))
+        assert max(e_lam, e_vec) <= 4 * base + 1e-6, (e_lam, e_vec, base)
+    counts = eig._weig_cuda(zt, yt, 30, tol, eig._default_null_rel(dtype),
+                            counts=True)[2]
+    assert torch.equal(counts.cpu().long(), _plain_sweeps(
+        torch.bmm(zt.double(), yt.double().mT), 30, tol))
 
 
 @pytest.mark.parametrize("eig_solver", ["jacobi", "smallk"])

@@ -516,17 +516,51 @@ def _weig_inputs(rng, B, n, k):
 
 
 @pytest.mark.parametrize("B, n, k, tol", [(6, 40, 8, 0.0), (6, 40, 8, 3e-6),
-                                          (5, 125, 32, 3e-6)])
+                                          (5, 125, 32, 3e-6),
+                                          (2, 125, 124, 3e-6),
+                                          (2, 375, 32, 3e-6),
+                                          (1, 375, 374, 3e-6)])
 def test_weig_matches_jax(B, n, k, tol):
     """K8: W = Z^T (G Z) built from the transposed factors, then the sweeps
     with the stop shared over the batch (the inputs of
-    tests/test_smallk_path.py, in f64, and the main-path k = 32, n = 125)."""
+    tests/test_smallk_path.py, in f64, the main-path k = 32, n = 125, and
+    the shapes of the other weig paths: the float64 main step's k = 124,
+    the elasticity Grams' n = 375 at k = 32 and, in float64, k = 374).
+    At most 12 sweeps; at k = 374 these W need 18 (12 leave them
+    unconverged, where two orders of summation part by ~6e-5 of lambda_max),
+    so there at most 30."""
     ZT, YT = _weig_inputs(np.random.default_rng(11), B, n, k)
+    sweeps = 30 if k > 128 else 12
     jlam, jU = jax_eig.weig_pallas(jnp.asarray(ZT), jnp.asarray(YT),
-                                   sweeps=12, tol=tol)
-    lam, U = eig.weig(torch.from_numpy(ZT), torch.from_numpy(YT), sweeps=12,
-                      tol=tol)
+                                   sweeps=sweeps, tol=tol)
+    lam, U = eig.weig(torch.from_numpy(ZT), torch.from_numpy(YT),
+                      sweeps=sweeps, tol=tol)
     _check_eig_sep(lam, U, jlam, jU)
+
+
+# K5's route at row length n (csrc/jacobi_eigh.cu: jacobi_route) on an
+# H100's 227 KB of shared memory: n = 32 a warp, n <= 128 RegRows,
+# LoopRows while the rows fit one CTA (float32 n <= 238, float64 n <= 168),
+# a thread-block cluster up to n = 384, global rows beyond
+_ROUTES = {2: "rows", 8: "rows", 32: "warp", 124: "rows", 126: "rows",
+           128: "rows", 130: "loop rows", 374: "cluster", 384: "cluster",
+           386: "global rows"}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("k", sorted(_ROUTES))
+def test_k8_route_is_k5_rule(k, itemsize):
+    """K8 takes K5's route at row length k, picked by k alone (K8 sweeps in
+    float64 at either input type, so its rule is K5's float64 one, which
+    at these k names the same route as K5's float32 one): the twin
+    ``eig.k8_route`` equals ``eig.k5_route`` (the twin of the launchers'
+    ``jacobi_route``) at both item sizes, and both give the route the rule
+    names; the cluster route has a plan (``k5_cluster_plan``)."""
+    route = eig.k8_route(k)
+    assert route == eig.k5_route(k, itemsize) == _ROUTES[k]
+    assert route in eig.K5_ROUTES
+    if route == "cluster":
+        assert eig.k5_cluster_plan(k, itemsize) is not None
 
 
 def _real_grams():
