@@ -89,7 +89,29 @@ Phases (each prints its numbers; any failure exits non-zero):
    on a thread-block cluster per W), and the same two with
    ``smallk_weig=True`` (K8 four times a step, no K5; each field against
    the same dtype's path with K5, ``WEIG_FIELD_BOUND``), prolonged fields
-   of each pair within 1e-2.
+   of each pair within 1e-2;
+10. run: ``LODSolver(...).run()`` on the card, the whole pipeline (basis,
+   coarse operator and solve, fine FEM, coarse FEM, error tables), each
+   run a path of its own: ``run-2d-default`` (``SLODConfig()``, the
+   reference's example: 2D plain LOD in float64; the golden fem rhs l2
+   norm 0.109375, 81 / 16 dofs, 16 patches of sizes 4..9, every table
+   equal to the CPU run's to 1e-10), ``run-plain-f64`` (the main grid,
+   plain LOD in float64, the fine solve on the dense two-level
+   preconditioner), ``run-slod-eigh-f64`` (the same with SLOD:
+   "auto" = the ``torch.linalg.eigh`` stage, its time printed; its
+   LOD-vs-FEMh L2 error and prolonged field against the float64 smallk
+   step on the same field, ``EIGH_BOUND``, which two faulty eigh stages
+   must exceed; and refine-3's eigh step against the same route on
+   the CPU, within 10x the card's own change under a 1e-15 coefficient
+   change and at least ``EIGH_CPU_BOUND``, which each faulty stage must
+   exceed),
+   ``run-elasticity`` (the elasticity configuration in float32 with the
+   stencil two-level preconditioner and the coarse FEM's CG branch) and
+   ``run-cli`` (the CLI once, 2D diffusion in float32, into a temporary
+   directory: rc 0, the parameter dump and three VTU files, the launches
+   its code path implies, tables and LOD field within ``CLI_F32_BOUND``
+   of the same configuration's float32 run on the CPU).  Each prints its
+   stage walls, peak memory, tables and launches.
 
 Every path counts its kernel launches from 0, set just before its first
 call and read just after its last; each K4 row's device time per step of
@@ -102,7 +124,9 @@ true, "device": {...}}``.  No JAX is imported.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -110,7 +134,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "el-kernels", "e2e-f64", "jacobi",
-          "main", "weig", "elasticity")
+          "main", "weig", "elasticity", "run")
 # H100 SXM: float32 outside the tensor cores, float64 on them (DMMA)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
@@ -164,12 +188,36 @@ PATH_KERNELS = {
     "weig-f64": _WEIG,
     "elasticity-r3-weig-f32": _ELASTIC_WEIG,
     "elasticity-r3-weig-f64": _ELASTIC_WEIG,
+    # LODSolver.run(): plain LOD and the eigh stage skip K4 / K5
+    "run-2d-default": _MAIN[:3],
+    "run-plain-f64": _MAIN[:3],
+    "run-slod-eigh-f64": _MAIN[:3],
+    "run-elasticity": _ELASTIC,
+    "run-cli": _MAIN[:3],
 }
 # a weig path's prolonged field against the same dtype's path with K5 on
 # the symmetrized W (the weig path -> (that path, bound)): each bound is 10x
 # the difference that K8's previous design (a warp per pair on the W built
 # in float32 / float64 sums) gave on an NVIDIA H100 80GB HBM3 (1.084e-12,
 # 5.708e-07, 1.004e-05; PERF.md section 6)
+# the eigh run's LOD-vs-FEMh L2 error and prolonged field against the
+# float64 smallk step on the same field (smallk resolves all 125
+# directions in float64, its W to the Jacobi stop at smallk_tol = 3e-6):
+# 10x the relative differences an NVIDIA H100 80GB HBM3 gave (7.515e-06,
+# 1.300e-07)
+EIGH_BOUND = {"L2": 7.515e-05, "field": 1.300e-06}
+# the eigh route on the card against the same route on the CPU, float64,
+# refine-3 l=2 (512 patches): the prolonged fields' rel max difference is
+# held to 10x the card's own change when the coefficients move by 1e-15
+# relative, and never below this (the Grams' near-null directions are
+# resolved differently by two LAPACKs, as tests/test_torch_plain_lod.py
+# bounds the port against JAX)
+EIGH_CPU_BOUND = 1e-10
+# the CLI's run on the card (float32, SLODConfig()'s 2D shapes) against the
+# same configuration's run on the CPU in float32: every table value and the
+# LOD field, relative; 10x the float32-vs-float64 differences of that run
+# on the CPU (<= 8.8e-7 in the tables, 7.3e-7 in the field)
+CLI_F32_BOUND = 1e-5
 WEIG_FIELD_BOUND = {
     "weig-f64": ("main-f64", 1.084e-11),
     "elasticity-r3-weig-f32": ("elasticity-r3-f32", 5.708e-06),
@@ -223,24 +271,28 @@ def make_solver(cfg, elastic, **kw):
 
 def expected_launches(s):
     """Kernel launches per step that the solver's code path implies: per
-    chunk the patch solve (K1 once, or K6 once per leaf of the Schur
-    split), K2 once per 128-pivot of T^-1 and, on the smallk route, of
-    (G + delta I)^-1, the trace and A phi (K3 at C = 1, K7 at C > 1), and
-    the spectral stage (smallk: K4 per subspace step and K5, or K8, once;
-    Jacobi: K5 once)."""
+    chunk the patch solve (K1 once, K6 once per leaf of the Schur split,
+    none for the per-patch Cholesky solve), K2 once per 128-pivot of T^-1
+    and, on the smallk route, of (G + delta I)^-1, A phi and, with SLOD,
+    the trace (K3 at C = 1, K7 at C > 1), and the spectral stage (smallk:
+    K4 per subspace step and K5, or K8, once; Jacobi: K5 once; eigh: no
+    kernel)."""
     from dealii_slod_tpu_torch.ops.patch_solve import GJ_PAD, split_leaves
     tab = s._tables
-    per = ({"K6 spd_multirhs_solve": len(split_leaves(tab.nI, tab.cD,
-                                                      tab.panel_nb))}
-           if tab.solver_mode == "fused_split"
-           else {"K1 fused_spd_multirhs": 1})
-    smallk = tab.spec_mode == "smallk"
+    per = {}
+    if tab.solver_mode == "fused_split":
+        per["K6 spd_multirhs_solve"] = len(split_leaves(tab.nI, tab.cD,
+                                                        tab.panel_nb))
+    elif tab.solver_mode == "fused":
+        per["K1 fused_spd_multirhs"] = 1
+    smallk = tab.slod and tab.spec_mode == "smallk"
     per["K2 gj_inverse"] = -(-tab.cD // GJ_PAD) * (2 if smallk else 1)
-    per["K3 stencil_trace" if tab.C == 1 else "K7 stencil_trace"] = 2
+    per["K3 stencil_trace" if tab.C == 1 else "K7 stencil_trace"] = \
+        2 if tab.slod else 1
     if smallk:
         per["K4 mgs_qr"] = max(1, tab.smallk_power)
         per["K8 weig" if tab.smallk_weig else "K5 jacobi_eigh"] = 1
-    else:
+    elif tab.slod and tab.spec_mode == "jacobi":
         per["K5 jacobi_eigh"] = 1
     P = s.topo.n_patches
     chunks = -(-P // (s.cfg.patch_chunk or P))
@@ -1623,6 +1675,288 @@ def phase_elasticity(profile=False):
     return paths
 
 
+def run_solver(path, cfg, elastic=False):
+    """Drive one path through ``LODSolver(cfg, problem).run()`` on the
+    card: the launch counts are set to 0 just before the run and read just
+    after, and must equal what the code path implies for one step; prints
+    the stage walls, the peak memory, the tables and the launches; returns
+    (solver, results, per-path numbers)."""
+    import torch
+    from dealii_slod_tpu_torch.utils import kernels
+
+    s = make_solver(cfg, elastic)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = s.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    expected = expected_launches(s)
+    stages = {k: round(v, 4) for k, v in sorted(s.timer.totals.items())}
+    print(f"[{path}] {s.topo.n_patches} patches C={s.C} {cfg.dtype} "
+          f"(LOD{' + SLOD' * s._tables.slod}, patch solver {s.solver_mode}"
+          f", spectral stage {s.spec_mode if s._tables.slod else 'none'}): "
+          f"run() {wall:.3f} s; stage walls (s) {stages}; peak "
+          f"{peak / 2**30:.2f} GiB; launches {counts}, expected {expected}")
+    tables = {k: t.rows[0][2] for k, t in out.items() if hasattr(t, "rows")}
+    for k, t in tables.items():
+        print(f"[{path}]   {k}: {t}")
+    if cfg.solve_fine_problem:
+        res = s.fine_cg
+        print(f"[{path}]   fine CG {int(res.n_iter)} it, converged "
+              f"{bool(res.converged)} (residual {float(res.residual):.3e} "
+              f"of {float(res.initial_residual):.3e})")
+        check(bool(res.converged), f"{path}: the fine CG did not converge")
+    check(all(counts.get(k, 0) > 0 for k in PATH_KERNELS[path]),
+          f"a kernel of the {path} path was not launched: {counts}")
+    check(counts == expected,
+          f"{path}: launches differ from the expected counts")
+    check(bool(torch.isfinite(out["lod_solution"]).all())
+          and float(out["lod_solution"].abs().max()) > 0,
+          f"{path}: the LOD solution is not finite and non-zero")
+    check(tables and all(math.isfinite(v) for t in tables.values()
+                         for v in t.values()),
+          f"{path}: the error tables are missing or not finite")
+    return s, out, dict(counts=counts, per_step=counts, run_wall_s=wall,
+                        stage_walls_s=stages, peak_bytes=peak)
+
+
+def eigh_step_field(cfg, device="cuda", stage=None, pert=0.0):
+    """One step of the diffusion configuration ``cfg`` (its spectral stage
+    the eigh stage) on ``device``, with ``torch.linalg.eigh`` replaced by
+    ``stage`` when given and the coefficients moved by ``pert`` relative
+    (seeded normal noise) -> the prolonged LOD field."""
+    import torch
+    eigh = torch.linalg.eigh
+    if stage is not None:
+        torch.linalg.eigh = stage
+    try:
+        s = make_solver(cfg, False, device=device)
+        check(s.spec_mode in ("lapack", "lax"),
+              f"not the eigh stage: {s.spec_mode!r}")
+        s.assemble_fine_rhs()
+        gen = torch.Generator().manual_seed(0)
+        coef = {k: v * (1 + pert * torch.randn(
+                    v.shape, generator=gen, dtype=torch.float64).to(v))
+                for k, v in s.coef_q.items()}
+        s.build_step()(coef, s.fem_rhs)
+        return s.prolong_lod_solution()
+    finally:
+        torch.linalg.eigh = eigh
+
+
+def eigh_faults():
+    """Faulty eigh stages, to show what the eigh checks can see: the
+    decomposition in float32, and the eigenpairs left ascending (the
+    basis reverses eigh's ascending order)."""
+    import torch
+    eigh = torch.linalg.eigh
+
+    def in_float32(G):
+        return tuple(t.to(G.dtype) for t in eigh(G.float()))
+
+    def ascending(G):
+        return tuple(t.flip(-1) for t in eigh(G))
+
+    return {"eigh in float32": in_float32, "eigenpairs ascending": ascending}
+
+
+def phase_run():
+    """``LODSolver.run()`` on the card: the reference's example, the main
+    grid in plain LOD and with the eigh stage (float64), the elasticity
+    configuration, and the CLI; returns the per-path numbers by path."""
+    import tempfile
+
+    import torch
+    from dealii_slod_tpu_torch import DiffusionProblem, LODSolver, SLODConfig
+    from dealii_slod_tpu_torch import cli
+    from dealii_slod_tpu_torch.utils import errors, kernels
+
+    paths = {}
+    # 1. the reference's example against the same run on the CPU
+    cfg = SLODConfig()
+    ref = LODSolver(cfg, DiffusionProblem(cfg), device="cpu",
+                    verbose=False).run()
+    s, out, paths["run-2d-default"] = run_solver("run-2d-default", cfg)
+    sizes = s.topo.patch_sizes()
+    norm = float(torch.linalg.norm(s.fem_rhs))
+    worst = max(abs(out[k].rows[0][2][n] - v) / abs(v)
+                for k, t in ref.items() if hasattr(t, "rows")
+                for n, v in t.rows[0][2].items())
+    print(f"[run-2d-default] fem rhs l2 norm {norm!r}, "
+          f"{s.fem_solution.numel()} fine / {s.coarse_solution.numel()} "
+          f"coarse dofs, "
+          f"{s.topo.n_patches} patches of sizes {sizes.min()}..{sizes.max()};"
+          f" tables vs the CPU run: worst rel diff {worst:.3e} (<= 1e-10)")
+    check(abs(norm - 0.109375) <= 1e-12 and s.fem_solution.numel() == 81
+          and s.coarse_solution.numel() == 16 and s.topo.n_patches == 16
+          and (sizes.min(), sizes.max()) == (4, 9),
+          "run-2d-default: the golden numbers differ")
+    check(list(out) == list(ref) and worst <= 1e-10,
+          "run-2d-default: the card's tables differ from the CPU's")
+    del s, out, ref
+
+    # 2. the main grid in plain LOD, float64, dense two-level fine solve
+    fine = dict(solve_fine_problem=True, fine_preconditioner="two_level")
+    s, _, paths["run-plain-f64"] = run_solver(
+        "run-plain-f64", bench_cfg("float64", lod_stabilization=False,
+                                   **fine))
+    check(s.topo.n_patches * s.C <= s.cfg.two_level_dense_cap,
+          "run-plain-f64: not the dense two-level route")
+    del s
+
+    # 3. the same with SLOD on the eigh stage, timed, against smallk
+    eigh, spent = torch.linalg.eigh, []
+
+    def timed_eigh(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = eigh(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0, tuple(a[0].shape)))
+        return r
+
+    torch.linalg.eigh = timed_eigh
+    try:
+        se, oute, paths["run-slod-eigh-f64"] = run_solver(
+            "run-slod-eigh-f64", bench_cfg("float64", **fine))
+    finally:
+        torch.linalg.eigh = eigh
+    check(se.spec_mode == "lapack",
+          f"eig_solver='auto' resolved to {se.spec_mode!r} in float64")
+    print(f"[run-slod-eigh-f64] torch.linalg.eigh: {len(spent)} calls on "
+          f"{sorted(set(sh for _, sh in spent))}, "
+          f"{sum(t for t, _ in spent):.3f} s in all")
+    check(spent, "run-slod-eigh-f64: torch.linalg.eigh was not called")
+    kernels.reset_launch_counts()
+    ss = make_solver(bench_cfg("float64", eig_solver="smallk"), False)
+    ss.assemble_fine_rhs()
+    ss.build_step()(ss.coef_q, ss.fem_rhs)
+    field = ss.prolong_lod_solution()
+    l2s = errors.error_norms(ss.grid, ss.et, ss.conn, field,
+                             other=se.fem_solution)["L2"]
+    l2e = oute["error_LOD_FEMh"].rows[0][2]["L2"]
+    e_l2 = abs(l2e - l2s) / l2s
+    e_f = rel(se.lod_solution, field)
+    print(f"[run-slod-eigh-f64] LOD-vs-FEMh L2: eigh {l2e!r}, smallk "
+          f"{l2s!r}, rel diff {e_l2:.3e} (<= {EIGH_BOUND['L2']:.1e}); "
+          f"prolonged fields rel max diff {e_f:.3e} (<= "
+          f"{EIGH_BOUND['field']:.1e})")
+    check(e_l2 <= EIGH_BOUND["L2"] and e_f <= EIGH_BOUND["field"],
+          "run-slod-eigh-f64: the eigh and smallk runs disagree")
+    # what that bound can see: faulty eigh stages, the same two numbers
+    for name, stage in eigh_faults().items():
+        bad = eigh_step_field(bench_cfg("float64", eig_solver="lapack"),
+                              stage=stage)
+        l2b = errors.error_norms(ss.grid, ss.et, ss.conn, bad,
+                                 other=se.fem_solution)["L2"]
+        b_l2, b_f = abs(l2b - l2s) / l2s, rel(bad, field)
+        seen = not (b_l2 <= EIGH_BOUND["L2"] and b_f <= EIGH_BOUND["field"])
+        print(f"[run-slod-eigh-f64] faulty stage ({name}) against smallk: "
+              f"L2 rel diff {b_l2:.3e}, field {b_f:.3e}; seen by the bound "
+              f"{seen}")
+        check(seen, "run-slod-eigh-f64: the eigh-vs-smallk check does not "
+              f"see a faulty stage ({name})")
+        del bad
+    del se, oute, ss, field
+    # the same route on the CPU, refine-3 (512 patches)
+    cfg3 = bench_cfg("float64", n_global_refinements=3, eig_solver="lapack")
+    t0 = time.perf_counter()
+    f_cpu = eigh_step_field(cfg3, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    f_gpu = eigh_step_field(cfg3)
+    sens = rel(eigh_step_field(cfg3, pert=1e-15), f_gpu)
+    bound = max(EIGH_CPU_BOUND, 10 * sens)
+    e_c = rel(f_gpu.cpu(), f_cpu)
+    print(f"[run-slod-eigh-f64] refine-3 (512 patches) eigh step, card vs "
+          f"CPU ({t_cpu:.1f} s there): prolonged fields rel max diff "
+          f"{e_c:.3e} (<= {bound:.3e}: the card's own change under a "
+          f"1e-15 coefficient change {sens:.3e}, x10, >= "
+          f"{EIGH_CPU_BOUND:.0e})")
+    for name, stage in eigh_faults().items():
+        b_c = rel(eigh_step_field(cfg3, stage=stage).cpu(), f_cpu)
+        print(f"[run-slod-eigh-f64] refine-3 faulty stage ({name}) vs the "
+              f"CPU: {b_c:.3e}")
+        check(not b_c <= bound, "run-slod-eigh-f64: the card-vs-CPU eigh "
+              f"check does not see a faulty stage ({name})")
+    check(e_c <= bound,
+          "run-slod-eigh-f64: the card's and the CPU's eigh routes disagree")
+    del f_cpu, f_gpu
+
+    # 4. elasticity (float32, SLOD, smallk, Schur split): the stencil
+    # two-level preconditioner and the coarse FEM's CG branch
+    s, out, paths["run-elasticity"] = run_solver(
+        "run-elasticity", elastic_cfg("float32", **fine), elastic=True)
+    check(s.topo.n_patches * s.C > s.cfg.two_level_dense_cap
+          and s.solver_mode == "fused_split" and s.spec_mode == "smallk",
+          "run-elasticity: not the stencil two-level / split / smallk route")
+    check("error_FEMH_FEMh" in out and s.coarse_fem_solution.numel() > 6000,
+          "run-elasticity: the coarse FEM comparison did not take its CG "
+          "branch")
+    del s, out
+
+    # 5. the CLI once, 2D diffusion (float32 on the card), into a
+    # temporary directory; the solver it builds is caught to hold its
+    # launches to its code path and its results to the same configuration
+    # run on the CPU
+    from dealii_slod_tpu_torch.models import lod
+    seen, run0 = [], lod.LODSolver.run
+
+    def run_seen(self):
+        res = run0(self)
+        seen.append((self, res))
+        return res
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        lod.LODSolver.run = run_seen
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["diffusion", os.path.join(tmp, "parameters.prm")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            lod.LODSolver.run = run0
+            os.chdir(here)
+        counts = dict(kernels.launches)
+        files = sorted(os.listdir(tmp))
+    print(f"[run-cli] rc {rc} in {wall:.3f} s; files {files}; launches "
+          f"{counts}")
+    check(rc == 0, "run-cli: the CLI failed")
+    check({"used_parameters_2.prm", "solution_fine.vtu",
+           "solution_coarse.vtu", "solution_coefficients.vtu"}
+          <= set(files), "run-cli: an output file is missing")
+    check(len(seen) == 1, "run-cli: the CLI did not run one solver")
+    s, out = seen[0]
+    check(s.device.type == "cuda" and s.cfg.dtype == "float32",
+          f"run-cli: ran on {s.device} in {s.cfg.dtype}")
+    check(all(counts.get(k, 0) > 0 for k in PATH_KERNELS["run-cli"]),
+          f"a kernel of the run-cli path was not launched: {counts}")
+    check(counts == expected_launches(s),
+          f"run-cli: launches differ from the expected counts "
+          f"{expected_launches(s)}")
+    cfg = dataclasses.replace(s.cfg, write_output=False)
+    ref = LODSolver(cfg, DiffusionProblem(cfg), device="cpu",
+                    verbose=False).run()
+    worst = max(abs(out[k].rows[0][2][n] - v) / abs(v)
+                for k, t in ref.items() if hasattr(t, "rows")
+                for n, v in t.rows[0][2].items())
+    e_f = rel(out["lod_solution"].cpu(), ref["lod_solution"])
+    print(f"[run-cli] against the float32 CPU run: tables worst rel diff "
+          f"{worst:.3e}, LOD field {e_f:.3e} (<= {CLI_F32_BOUND:.0e})")
+    check(list(out) == list(ref) and worst <= CLI_F32_BOUND
+          and e_f <= CLI_F32_BOUND,
+          "run-cli: the card's run differs from the CPU's")
+    paths["run-cli"] = dict(counts=counts, per_step=counts, run_wall_s=wall)
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1637,6 +1971,7 @@ def main():
                     "run under this script's phases and timing")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1677,12 +2012,16 @@ def main():
             paths["weig"], paths["weig-f64"] = phase_weig(f64, args.profile)
         if "elasticity" in phases:
             paths.update(phase_elasticity(args.profile))
+        if "run" in phases:
+            paths.update(phase_run())
     except Exception as exc:                     # any phase failure
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr)
         import traceback
         traceback.print_exc()
         return 1
+    print(f"chip_smoke: phases {','.join(phases)} done in "
+          f"{time.perf_counter() - t_start:.1f} s")
     for row in table:
         by_path = {p: out["counts"].get(row["kernel"], 0)
                    for p, out in paths.items() if out is not None}

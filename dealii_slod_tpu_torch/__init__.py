@@ -9,36 +9,48 @@ The package imports ``torch`` and numpy, and nothing of ``jax`` or of the
 JAX package: the host-side modules it shares with the reference (``config``,
 ``grid``, ``ops/element``, ``models/coefficients``) are its own copies.
 
-What runs today is the SLOD step that ``bench.py`` times, for scalar
-diffusion and for linear elasticity (C = dim components), with its default
-knobs (``eig_solver="auto"``: the smallk spectral stage on the card in
-float32; ``patch_solver="auto"``: the fused patch solve, or its 2x2 Schur
-split where the patch block is too large, as 3D elasticity's) or
-``eig_solver="jacobi"``::
+What runs: the reference's whole pipeline, ``LODSolver.run()`` (basis,
+coarse operator and solve, the fine and coarse FEM comparison solves, the
+error tables, VTU output), for scalar diffusion and linear elasticity
+(C = dim components), plain LOD (``SLODConfig()``'s default) or SLOD, on
+the reference's knobs: ``eig_solver="auto"`` is the smallk spectral stage
+on the card in float32 and the ``eigh`` stage ("lapack") elsewhere, also
+"smallk", "jacobi", "lapack" / "lax"; ``patch_solver="auto"`` applies the
+reference's size rule (the fused patch solve, its 2x2 Schur split where
+the block is too large, as 3D elasticity's), also "lax" (the per-patch
+Cholesky solve)::
 
-    s = LODSolver(cfg, DiffusionProblem(cfg))          # on the card
-    s = LODSolver(cfg, ElasticityProblem(cfg))         # or elasticity
+    cfg = SLODConfig()                                  # 2D plain LOD, f64
+    results = LODSolver(cfg, DiffusionProblem(cfg)).run()   # on the card
+    s = LODSolver(cfg, ElasticityProblem(cfg), device="cpu")
     s.assemble_fine_rhs()
-    step = s.build_step()
-    u, A_st = step(s.coef_q, s.fem_rhs)
+    u, A_st = s.build_step()(s.coef_q, s.fem_rhs)       # the step alone
 
-``LODSolver`` runs on the card unless given ``device="cpu"``.  Every other
-knob value raises ``NotImplementedError`` naming its ROADMAP.md entry.
+and the command line, ``python -m dealii_slod_tpu_torch.cli
+diffusion|elasticity [file.prm] [--device cpu]``.  ``LODSolver`` and the
+CLI run on the card unless given ``device="cpu"``.  Every other knob value
+raises ``NotImplementedError`` naming its ROADMAP.md entry.
 """
 
 __version__ = "0.1.0"
 
 from dealii_slod_tpu_torch.config import ReductionControl, SLODConfig
+from dealii_slod_tpu_torch.grid import GridSpec, PatchTopology
 from dealii_slod_tpu_torch.models.diffusion import DiffusionProblem
 from dealii_slod_tpu_torch.models.elasticity import ElasticityProblem
 from dealii_slod_tpu_torch.models.lod import LODSolver
+from dealii_slod_tpu_torch.utils.errors import ConvergenceTable, error_norms
 from dealii_slod_tpu_torch.utils.state import load_state
 
 __all__ = [
+    "ConvergenceTable",
     "DiffusionProblem",
     "ElasticityProblem",
+    "GridSpec",
     "LODSolver",
+    "PatchTopology",
     "ReductionControl",
     "SLODConfig",
+    "error_norms",
     "load_state",
 ]

@@ -1,8 +1,8 @@
 """Batched SLOD basis construction on the padded canvas — the hot
 per-patch loop (counterpart of ``dealii_slod_tpu/models/basis.py``: the
-uniform kernel's chunk form, ``_uniform_chunk_fn`` with the fused patch
-solver or its Schur split and the split spectral stage, smallk or Jacobi),
-for scalar diffusion (C = 1) and linear elasticity (C = dim).  Dofs are
+uniform kernel's chunk form, ``_uniform_chunk_fn``), for scalar
+diffusion (C = 1) and linear elasticity (C = dim): plain LOD, or SLOD with
+the smallk, Jacobi or ``eigh`` spectral stage.  Dofs are
 node-major with the components interleaved (node * C + c); the trace works
 on (B, C, nN, k).
 
@@ -15,14 +15,19 @@ product.  Each function below works on a batch (chunk) of B patches.
 Per chunk (reference source/LOD.cc:296-768):
 
 1. ``prep``: bands, the SPD interior block A, the masked projection PT;
-2. X = A^-1 PT and T = PT^T X (K1, or the Schur split with K6 leaves),
-   T^-1 (K2, blocked beyond 128);
-3. the patch-boundary trace S = A X (K3 / K7) and the Gram F = BD^T BD,
-   C Grams per patch from one F;
-4. the stabilization coefficients dvec on the B C Grams: the smallk stage
-   (K2, K4, K5 or K8 on the smallest directions) or the Jacobi stage (K5
-   on the Gram's Cholesky factor, then the truncated pseudo-inverse solve);
-5. the C candidates and A phi (K3 / K7).
+2. X = A^-1 PT and T = PT^T X (K1, the Schur split with K6 leaves, or
+   ``patch_solver="lax"``'s per-patch Cholesky solve), T^-1 (K2, blocked
+   beyond 128);
+3. SLOD only: the patch-boundary trace S = A X (K3 / K7) and the Gram
+   F = BD^T BD, C Grams per patch from one F;
+4. SLOD only: the stabilization coefficients dvec on the B C Grams: the
+   smallk stage (K2, K4, K5 or K8 on the smallest directions), the Jacobi
+   stage (K5 on the Gram's Cholesky factor) or the ``eigh`` stage
+   (``eig_solver="lapack"`` / ``"lax"``: the Gram's full eigendecomposition
+   by ``torch.linalg.eigh``, as JAX computes it in XLA), each but smallk
+   followed by the truncated pseudo-inverse solve;
+5. the C candidates (plain LOD: X T^-1 at the centre dofs) and A phi
+   (K3 / K7).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from dealii_slod_tpu_torch.ops.eig import (_truncation_scan,
                                            jacobi_eigh_factor,
                                            smallk_truncated_dvec)
 from dealii_slod_tpu_torch.ops.patch_solve import (fused_spd_multirhs,
+                                                   fused_spd_multirhs_plain,
                                                    fused_spd_multirhs_split,
                                                    spd_inverse_schur)
 
@@ -68,14 +74,16 @@ class UniformTables:
     cD: int                     # coarse dofs (cells * C)
     n_int: int                  # interior canvas nodes
     nI: int                     # interior dofs (n_int * C)
-    solver_mode: str            # "fused" (K1) or "fused_split" (K6 leaves)
+    solver_mode: str            # "fused" (K1), "fused_split" (K6 leaves)
+                                # or "lax" (per-patch Cholesky)
     panel_nb: int               # split rule block size
     Hdim: float
     thr: float
     sweeps: int
     eig_tol: float
     eig_block: int | None       # plain-version stop sharing (None: as JAX)
-    spec_mode: str              # "smallk" or "jacobi"
+    slod: bool                  # SLOD stabilization (else plain LOD)
+    spec_mode: str              # "smallk", "jacobi", "lapack" or "lax"
     k_eff: int                  # smallk directions
     smallk_power: int
     smallk_tol: float
@@ -125,7 +133,9 @@ def uniform_tables(cfg, grid, et, sc, center_cell, device, dtype,
         nI=len(sc.interior_nodes) * C, solver_mode=solver_mode,
         panel_nb=cfg.panel_nb,
         Hdim=grid.H ** dim, thr=cfg.svd_threshold, sweeps=cfg.eig_sweeps,
-        eig_tol=cfg.eig_tol, eig_block=eig_block, spec_mode=spec_mode,
+        eig_tol=cfg.eig_tol, eig_block=eig_block,
+        slod=bool(cfg.lod_stabilization and cfg.oversampling > 0),
+        spec_mode=spec_mode,
         k_eff=smallk_k_eff(sc.n_coarse_dofs_local, dtype, cfg.smallk_dirs),
         smallk_power=cfg.smallk_power, smallk_tol=cfg.smallk_tol,
         smallk_weig=cfg.smallk_weig, center_cell=center_cell,
@@ -255,8 +265,8 @@ def finish_pre_from_S(tab: UniformTables, S99, Tinv, cvd, is99d):
 
 def jacobi_dvec(tab: UniformTables, lam, V, g0):
     """Stabilization coefficients from the Gram's full eigendecomposition
-    (the Jacobi stage): the truncated pseudo-inverse solve and the
-    sigma-truncation loop (LOD.cc:667-725).  lam (B, cD) descending, V
+    (the Jacobi or the eigh stage): the truncated pseudo-inverse solve and
+    the sigma-truncation loop (LOD.cc:667-725).  lam (B, cD) descending, V
     (B, cD, cD), g0 (B, cD) -> dvec (B, cD)."""
     inv_sig = torch.where(lam > tab.thr * lam[:, :1], 1.0 / lam, 0.0)
     uv = torch.einsum("bij,bi->bj", V, g0)                    # V^T g0
@@ -268,10 +278,13 @@ def finish_post_dvec(tab: UniformTables, band, Ainv_PT, Tinv, dvec, cvd,
                      nlo, nhi, sides):
     """The C stabilized candidates from the coefficients dvec (B, C, cD),
     all in one matmul chain, and the canvases phi, A_semi phi
-    (LOD.cc:727-765) -> (B, nN, C, C) each."""
+    (LOD.cc:727-765) -> (B, nN, C, C) each.  ``dvec`` None is plain LOD:
+    the one-hot columns alone, phi = X T^-1 at the centre dofs
+    (LOD.cc:727-757 without the stabilization)."""
     isdom, _ = edge_masks(tab, nlo, nhi, sides)
     onehots, colmasks = _center_masks(tab, cvd)
-    Dm = onehots[None] + dvec.mT * colmasks                   # (B, cD, C)
+    Dm = onehots[None] if dvec is None else \
+        onehots[None] + dvec.mT * colmasks                    # (B, cD, C)
     phi_int = Ainv_PT @ (Tinv @ Dm)                           # (B, nI, C)
     phi_int = phi_int / torch.sqrt((phi_int ** 2).sum(1, keepdim=True))
     phi = scatter_interior(tab, phi_int)
@@ -285,11 +298,35 @@ def finish_post_dvec(tab: UniformTables, band, Ainv_PT, Tinv, dvec, cvd,
 
 
 def patch_solve(tab: UniformTables, A_solve, PT_m):
-    """(X = A^-1 PT, T = PT^T X) by K1 (``"fused"``) or by the Schur split
-    with K6 leaves (``"fused_split"``)."""
+    """(X = A^-1 PT, T = PT^T X) by K1 (``"fused"``), by the Schur split
+    with K6 leaves (``"fused_split"``) or by a per-patch Cholesky solve
+    (``"lax"``: XLA's Cholesky in the reference, the library's here)."""
     if tab.solver_mode == "fused_split":
         return fused_spd_multirhs_split(A_solve, PT_m, nb=tab.panel_nb)
+    if tab.solver_mode == "lax":
+        return fused_spd_multirhs_plain(A_solve, PT_m)
     return fused_spd_multirhs(A_solve, PT_m)
+
+
+def spectral_dvec(tab: UniformTables, G, g0):
+    """The stabilization coefficients (B C, cD) of the Grams G (B C, cD,
+    cD) and projections g0 (B C, cD) by the stage ``tab.spec_mode``
+    names."""
+    if tab.spec_mode == "smallk":
+        return smallk_truncated_dvec(G, g0, k=tab.k_eff,
+                                     power_steps=tab.smallk_power,
+                                     small_tol=tab.smallk_tol,
+                                     weig_fused=tab.smallk_weig,
+                                     block=tab.eig_block)
+    if tab.spec_mode == "jacobi":
+        lam, V = jacobi_eigh_factor(G, sweeps=tab.sweeps, tol=tab.eig_tol,
+                                    block=tab.eig_block or 16)
+    else:
+        # the eigh stage: G is PSD, so its eigenpairs are its singular
+        # triplets (descending, as the reference reorders them)
+        lam, V = torch.linalg.eigh(G)
+        lam, V = lam.flip(-1), V.flip(-1)
+    return jacobi_dvec(tab, lam, V, g0)
 
 
 def uniform_chunk(tab: UniformTables, coefs, nlo, nhi, sides):
@@ -301,23 +338,15 @@ def uniform_chunk(tab: UniformTables, coefs, nlo, nhi, sides):
     del A_solve
     T = T_raw / tab.Hdim + torch.diag_embed(1.0 - cvd)
     Tinv = spd_inverse_schur(T)
-    S99, is99d = trace_S_chunk(tab, band, Ainv_PT, nlo, nhi, sides)
-    G, g0 = finish_pre_from_S(tab, S99, Tinv, cvd, is99d)
-    del S99
-    B, C = G.shape[:2]
-    G, g0 = G.reshape(B * C, tab.cD, tab.cD), g0.reshape(B * C, tab.cD)
-    if tab.spec_mode == "smallk":
-        dvec = smallk_truncated_dvec(G, g0, k=tab.k_eff,
-                                     power_steps=tab.smallk_power,
-                                     small_tol=tab.smallk_tol,
-                                     weig_fused=tab.smallk_weig,
-                                     block=tab.eig_block)
-    else:
-        lam, V = jacobi_eigh_factor(G, sweeps=tab.sweeps, tol=tab.eig_tol,
-                                    block=tab.eig_block or 16)
-        dvec = jacobi_dvec(tab, lam, V, g0)
-    return finish_post_dvec(tab, band, Ainv_PT, Tinv,
-                            dvec.reshape(B, C, tab.cD), cvd, nlo, nhi,
+    dvec = None
+    if tab.slod:
+        S99, is99d = trace_S_chunk(tab, band, Ainv_PT, nlo, nhi, sides)
+        G, g0 = finish_pre_from_S(tab, S99, Tinv, cvd, is99d)
+        del S99
+        B, C = G.shape[:2]
+        dvec = spectral_dvec(tab, G.reshape(B * C, tab.cD, tab.cD),
+                             g0.reshape(B * C, tab.cD)).reshape(B, C, tab.cD)
+    return finish_post_dvec(tab, band, Ainv_PT, Tinv, dvec, cvd, nlo, nhi,
                             sides)
 
 

@@ -1,20 +1,23 @@
-"""The SLOD pipeline step on a torch device (counterpart of
+"""The LOD / SLOD pipeline on a torch device (counterpart of
 ``dealii_slod_tpu/models/lod.py``): batched basis construction in chunks,
-the stencil coarse operator, and the coarse CG solve.
+the stencil coarse operator, the coarse CG solve, the fine and coarse FEM
+comparison solves, the error tables, VTU output and ``run()``.
 
 The tables are tensors on the ``device`` given to the constructor, the
-card unless the caller asks for the CPU.  The ported route is the 3D/2D
-SLOD step of scalar diffusion (C = 1) and linear elasticity (C = dim), with
-the fused patch solver or its 2x2 Schur split (``patch_solver="auto"``
-picks by the reference's size rule) and either the smallk spectral stage
-(``eig_solver="auto"`` on the card in float32, or ``"smallk"``) or the
-Jacobi stage (``"jacobi"``); every other knob value raises
-``NotImplementedError`` naming its ROADMAP.md entry."""
+card unless the caller asks for the CPU.  The ported routes are 3D / 2D
+scalar diffusion (C = 1) and linear elasticity (C = dim), plain LOD or
+SLOD, with the fused patch solver, its 2x2 Schur split or the per-patch
+Cholesky solve (``patch_solver="auto"`` picks by the reference's size
+rule) and the smallk, Jacobi or ``eigh`` spectral stage
+(``eig_solver="auto"``: smallk on the card in float32, ``eigh`` ("lapack")
+elsewhere); every other knob value raises ``NotImplementedError`` naming
+its ROADMAP.md entry."""
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import os
 import warnings
 
 import numpy as np
@@ -28,9 +31,18 @@ from dealii_slod_tpu_torch.grid import (GridSpec, PatchTopology,
 from dealii_slod_tpu_torch.models import basis, stencil
 from dealii_slod_tpu_torch.ops import element
 from dealii_slod_tpu_torch.ops.assembly import (FineOperator,
-                                                assemble_load_vector)
-from dealii_slod_tpu_torch.ops.solvers import cg
+                                                assemble_load_vector,
+                                                make_subcell_matrices)
+from dealii_slod_tpu_torch.ops.solvers import (cg, cholesky_solve,
+                                               dense_dirichlet_solve)
+from dealii_slod_tpu_torch.utils import errors
+from dealii_slod_tpu_torch.utils.errors import ConvergenceTable, host_array
 from dealii_slod_tpu_torch.utils.timers import StageTimer
+
+# the ROADMAP.md Queue 1 entries that the refusals below name, by title
+ROUTES = "the remaining basis and coarse routes"
+REACTION = "reaction-diffusion and the device sampler"
+SCALING = "scaling axes"
 
 
 @contextlib.contextmanager
@@ -63,9 +75,9 @@ def _full_f32(method):
     return run
 
 
-def _not_ported(what: str, item: str):
+def _not_ported(what: str, title: str):
     raise NotImplementedError(f"{what} is not ported yet "
-                              f"(ROADMAP.md Queue 1 item {item})")
+                              f"(ROADMAP.md Queue 1: {title})")
 
 
 def spectral_mode(cfg: SLODConfig, device: torch.device) -> str:
@@ -84,12 +96,14 @@ def patch_solver_mode(cfg: SLODConfig, C: int, sc: ShapeClass) -> str:
     reference's size rule (``models/basis.py: _fused_solver_mode``) on any
     device and dtype -- "fused" when the fused kernel's estimate fits
     12 MiB (3D l=2 diffusion sits exactly at it), else "fused_split" when
-    a half split fits 13 MiB (3D l=2 elasticity), else "lax" (not ported).
-    The rule only picks the structure the reference's accelerator path
-    runs; the card has no such limits."""
+    a half split fits 13 MiB (3D l=2 elasticity), else "lax" (the
+    per-patch Cholesky solve).  The rule only picks the structure the
+    reference's accelerator path runs; the card has no such limits.  A
+    named solver other than "fused", "fused_split" and "panel" is "lax",
+    as in the reference."""
     mode = cfg.patch_solver
     if mode != "auto":
-        return mode
+        return mode if mode in ("fused", "fused_split", "panel") else "lax"
     n = -(-sc.n_interior * C // 128) * 128
     k = -(-sc.n_coarse_dofs_local // 128) * 128
     bs = max(1, cfg.fused_block)
@@ -106,26 +120,21 @@ def check_supported(cfg: SLODConfig, problem, device: torch.device) -> None:
     """Refuse every knob value the port does not implement."""
     C = problem.n_components
     if C not in (1, cfg.dim):
-        _not_ported(f"C = {C} components in {cfg.dim}D", "9")
+        raise NotImplementedError(f"C = {C} components in {cfg.dim}D: the "
+                                  "reference's problems have C = 1 or dim")
     if cfg.kernel_mode != "uniform":
-        _not_ported(f"kernel_mode={cfg.kernel_mode!r}", "10")
-    if not (cfg.lod_stabilization and cfg.oversampling > 0):
-        _not_ported("LOD without SLOD stabilization", "10")
-    mode = spectral_mode(cfg, device)
-    if mode not in ("smallk", "jacobi"):
-        _not_ported(f"eig_solver={cfg.eig_solver!r} (the {mode!r} spectral "
-                    f"stage on {device.type})", "10")
-    if cfg.patch_solver not in ("auto", "fused", "fused_split"):
-        _not_ported(f"patch_solver={cfg.patch_solver!r}", "10")
+        _not_ported(f"kernel_mode={cfg.kernel_mode!r}", ROUTES)
+    if cfg.patch_solver == "panel":
+        _not_ported("patch_solver='panel'", ROUTES)
     if cfg.fused_nb != 64:
         _not_ported(f"fused_nb={cfg.fused_nb} (the kernel's panel is 64)",
-                    "10")
+                    ROUTES)
     if cfg.trace_kernel == "off":
-        _not_ported("trace_kernel='off' (the per-patch scan route)", "10")
+        _not_ported("trace_kernel='off' (the per-patch scan route)", ROUTES)
     if cfg.assembly_mode != "banded":
-        _not_ported(f"assembly_mode={cfg.assembly_mode!r}", "10")
+        _not_ported(f"assembly_mode={cfg.assembly_mode!r}", ROUTES)
     if cfg.coarse_solve != "cg":
-        _not_ported(f"coarse_solve={cfg.coarse_solve!r}", "7")
+        _not_ported(f"coarse_solve={cfg.coarse_solve!r}", ROUTES)
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype {cfg.dtype!r}")
     if (cfg.fused_algo != "ldl" or cfg.fused_block != 4 or cfg.solver_gj2
@@ -191,7 +200,7 @@ class LODSolver:
                        for k, v in problem.coefficients(self.qpts).items()}
         self.coef_names = sorted(self.coef_q)
         if self.coef_names != (["alpha"] if C == 1 else ["lam", "mu"]):
-            _not_ported(f"coefficients {self.coef_names}", "12")
+            _not_ported(f"coefficients {self.coef_names}", REACTION)
         self.conn = torch.as_tensor(global_connectivity(self.grid),
                                     device=dev)
 
@@ -226,12 +235,9 @@ class LODSolver:
 
         self.canvas_class = ShapeClass((2 * ell + 1,) * cfg.dim, self.grid)
         self.solver_mode = patch_solver_mode(cfg, C, self.canvas_class)
-        if self.solver_mode not in ("fused", "fused_split"):
-            _not_ported(f"patch_solver={cfg.patch_solver!r} resolving to "
-                        f"{self.solver_mode!r}", "10")
         if self.solver_mode == "fused_split" and cfg.panel_nb % 64:
             _not_ported(f"panel_nb={cfg.panel_nb} (the split's leaf kernel "
-                        "K6 tiles by 64)", "9")
+                        "K6 tiles by 64)", ROUTES)
         self.canvas_center_cell = int(ravel(np.full(cfg.dim, ell),
                                             np.full(cfg.dim, 2 * ell + 1)))
         self._tables = None
@@ -397,6 +403,7 @@ class LODSolver:
         res = self._coarse_cg(self.A_stencil, rhs_c)
         self.coarse_solution = res.x
         self.coarse_cg = res
+        self.log(f"   size of u {res.x.numel()}")
         return res.x
 
     @_full_f32
@@ -415,6 +422,317 @@ class LODSolver:
         return out
 
     # ------------------------------------------------------------------
+    # Fine FEM comparison solve (reference LOD.cc:1004-1094)
+    # ------------------------------------------------------------------
+
+    def _two_level_precond(self, diag):
+        """Additive two-level preconditioner for the fine solve,
+        M^-1 r = r / diag + C A_LOD^-1 C^T r, with the LOD space as the
+        coarse correction: the coarse matrix densified on the device from
+        the stencil and factored once by Cholesky."""
+        P, C = self.topo.n_patches, self.C
+        L = torch.linalg.cholesky(self.coarse_dense_matrix(self.A_stencil))
+
+        def coarse_solve(rc):
+            return cholesky_solve(L, rc.reshape(-1, 1))[:, 0].reshape(P, C)
+
+        return self._two_level_from(coarse_solve, diag)
+
+    def _two_level_precond_stencil(self, diag):
+        """The cap-free variant of ``_two_level_precond``: the coarse
+        correction is a degree-16 Chebyshev polynomial of the stencil
+        operator on [lmax / 30, lmax], lmax by Gershgorin row sums (linear
+        and SPD, a valid PCG preconditioner)."""
+        A_st = self.A_stencil
+        lmax = float(A_st.abs().sum(dim=(1, 3)).max())
+        lmin = lmax / 30.0
+        theta, delta = 0.5 * (lmax + lmin), 0.5 * (lmax - lmin)
+        nbr = self._t(self.stencil_nbr_np, torch.int64)
+        valid = self._t(self.stencil_valid_np, torch.bool)
+
+        degree = 16
+
+        def coarse_solve(rc):
+            # Chebyshev iteration for A y = rc on [lmin, lmax]
+            y = rc / theta
+            d = y
+            sigma = theta / delta
+            rho = 1.0 / sigma
+            for _ in range(degree - 1):
+                rho_new = 1.0 / (2.0 * sigma - rho)
+                r = rc - stencil.coarse_matvec_with(A_st, y, nbr, valid)
+                d = rho_new * (2.0 / delta * r + rho * d)
+                y = y + d
+                rho = rho_new
+            return y
+
+        return self._two_level_from(coarse_solve, diag)
+
+    def _two_level_from(self, coarse_solve, diag):
+        gidx = self.canvas_gidx.reshape(-1)
+
+        def precond(r):
+            rc = torch.einsum("pncd,pnc->pd", self.Phi,
+                              r[self.canvas_gidx])                # C^T r
+            vals = torch.einsum("pncd,pd->pnc", self.Phi, coarse_solve(rc))
+            coarse = torch.zeros_like(r)
+            coarse.index_add_(0, gidx, vals.reshape(-1, self.C))  # C y
+            coarse = torch.where(self.fine_bnd[:, None], 0.0, coarse)
+            return r / diag + coarse
+
+        return precond
+
+    @_full_f32
+    def solve_fine_fem(self):
+        """Fine-scale FEM solve: CG with Jacobi, or with the LOD-space
+        two-level preconditioner (``fine_preconditioner="two_level"``:
+        direct coarse factor up to ``two_level_dense_cap`` coarse dofs,
+        the stencil Chebyshev correction beyond)."""
+        cfg = self.cfg
+        op = FineOperator(self.et, self.conn, self.coef_q,
+                          dirichlet_mask=self.fine_bnd)
+        d = op.diagonal()
+        if (cfg.fine_preconditioner == "two_level"
+                and hasattr(self, "A_stencil")):
+            if self.topo.n_patches * self.C <= cfg.two_level_dense_cap:
+                precond = self._two_level_precond(d)
+            else:
+                precond = self._two_level_precond_stencil(d)
+        else:
+            precond = lambda r: r / d                            # noqa: E731
+        rc = cfg.fine_solver
+        res = cg(op, self.fem_rhs, max_steps=rc.max_steps,
+                 tolerance=rc.tolerance, reduce=rc.reduce, precond=precond)
+        # res.x is the eliminated correction (zero at Dirichlet rows)
+        u = res.x + self.fine_bc_values
+        self.fem_solution = u
+        self.fine_cg = res
+        if not bool(res.converged):
+            self.log(f"WARNING: fine CG did not converge in {rc.max_steps} "
+                     f"iterations (residual {float(res.residual):.3e})")
+        return u
+
+    # ------------------------------------------------------------------
+    # Coarse FEM comparison (reference LOD.cc:1103-1237)
+    # ------------------------------------------------------------------
+
+    @_full_f32
+    def solve_coarse_fem(self):
+        """Q1 FEM on the coarse grid: a dense direct solve up to 6000 dofs,
+        CG with Jacobi on the constrained operator beyond; interpolated to
+        the fine nodes."""
+        cfg, C, dt = self.cfg, self.C, self.dtype
+        N = cfg.n_coarse
+        gH = GridSpec(cfg.dim, N, 1, C)
+        etH = element.ElementTensors(cfg.dim, gH.h, C)
+        connH = global_connectivity(gH)
+        connH_t = self._t(connH, torch.int64)
+        qptsH = element.quad_points_global(gH)
+        coefsH = {k: self._t(v)
+                  for k, v in self.problem.coefficients(qptsH).items()}
+        f_qH = self._t(self.parse(cfg.rhs)(qptsH))
+        rhsH = assemble_load_vector(etH, connH_t, f_qH, gH.n_nodes)
+        bndH = self._t(gH.boundary_node_mask(), torch.bool)
+        gvals = self._t(self.parse(cfg.bc)(gH.node_coords()))
+
+        n_dofs = gH.n_fine_dofs
+        if n_dofs <= 6000:
+            # dense direct solve (reference SolverDirect, LOD.cc:1191-1195)
+            m = 2 ** cfg.dim
+            conn_dof = (connH[:, :, None] * C + np.arange(C)[None, None, :]
+                        ).reshape(len(connH), m * C).astype(np.int64)
+            flat = conn_dof[:, :, None] * n_dofs + conn_dof[:, None, :]
+            Ksub = make_subcell_matrices(etH, coefsH)
+            A = Ksub.new_zeros(n_dofs * n_dofs)
+            A.index_add_(0, self._t(flat.reshape(-1), torch.int64),
+                         Ksub.reshape(-1))
+            uH = dense_dirichlet_solve(
+                A.reshape(n_dofs, n_dofs), rhsH.reshape(-1),
+                bndH.repeat_interleave(C), gvals.reshape(-1)).reshape(-1, C)
+        else:
+            opH = FineOperator(etH, connH_t, coefsH, dirichlet_mask=bndH)
+            g_ext = torch.where(bndH[:, None], gvals, 0.0)
+            rhsE = torch.where(bndH[:, None], 0.0,
+                               rhsH - opH._apply_raw(g_ext))
+            dH = opH.diagonal()
+            res = cg(opH, rhsE, max_steps=2000, tolerance=1e-12,
+                     reduce=1e-14, precond=lambda r: r / dH)
+            uH = torch.where(bndH[:, None], g_ext, res.x)
+
+        # Q1 prolongation coarse nodes -> fine nodes (FETools::interpolate,
+        # LOD.cc:1201-1204)
+        s = cfg.n_subdivisions
+        f_coords = cartesian_coords(self.grid.node_dims)
+        cell = np.minimum(f_coords // s, N - 1)
+        tloc = (f_coords - cell * s) / s                      # (n_nodes, dim)
+        bits = cartesian_coords(np.full(cfg.dim, 2))          # (m, dim)
+        idxH = ravel(cell[:, None, :] + bits[None, :, :], gH.node_dims)
+        wts = np.prod(np.where(bits[None, :, :] == 1, tloc[:, None, :],
+                               1.0 - tloc[:, None, :]), axis=-1)
+        uH_fine = torch.einsum("nm,nmc->nc", self._t(wts, dt),
+                               uH[self._t(idxH, torch.int64)])
+        self.coarse_fem_solution = uH
+        self.coarse_fem_on_fine = uH_fine
+        return uH, uH_fine
+
+    # ------------------------------------------------------------------
+    # Output (reference output_coarse_results LOD.cc:248-293, fine VTU
+    # LOD.cc:1262-1377, coefficients VTU Diffusion.h:70-108, parameter dump
+    # LOD.cc:60-62)
+    # ------------------------------------------------------------------
+
+    def write_outputs(self):
+        from dealii_slod_tpu_torch.utils.io import (write_coarse_grid_vtu,
+                                                    write_fine_grid_vtu,
+                                                    write_subcell_field_vtu)
+        cfg = self.cfg
+        out, name = cfg.output_directory, cfg.output_name
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, f"used_parameters_{cfg.dim}.prm"),
+                  "w") as f:
+            f.write(cfg.to_prm())
+
+        # coefficient fields at fine-subcell resolution
+        centers = (cartesian_coords(self.grid.fine_cell_dims) + 0.5) \
+            * self.grid.h
+        coef_cells = {k: np.asarray(f) for k, f in
+                      self.problem.coefficients(centers).items()}
+        write_subcell_field_vtu(os.path.join(out, f"{name}_coefficients.vtu"),
+                                self.grid, coef_cells)
+
+        # fine fields
+        node_xy = self.grid.node_coords()
+        pd = {}
+        if hasattr(self, "fem_solution"):
+            pd["fem_reference"] = host_array(self.fem_solution)
+        pd["exact_solution"] = self.parse(cfg.exact_solution)(node_xy)
+        pd["exact_rhs"] = self.parse(cfg.rhs)(node_xy)
+        if hasattr(self, "lod_solution"):
+            pd["lod_solution"] = host_array(self.lod_solution)
+        if hasattr(self, "coarse_fem_on_fine"):
+            pd["fem_coarse_solution"] = host_array(self.coarse_fem_on_fine)
+        write_fine_grid_vtu(os.path.join(out, f"{name}_fine.vtu"),
+                            self.grid, pd)
+
+        # coarse (per-cell DGQ0) fields
+        if hasattr(self, "coarse_solution"):
+            cell_centers = (cartesian_coords(self.grid.cell_dims) + 0.5) \
+                * self.grid.H
+            cd = {"LOD_solution": host_array(self.coarse_solution),
+                  "exact_solution":
+                      self.parse(cfg.exact_solution)(cell_centers)}
+            write_coarse_grid_vtu(os.path.join(out, f"{name}_coarse.vtu"),
+                                  self.grid, cd)
+
+    # ------------------------------------------------------------------
+    # Full pipeline (reference LOD::run, LOD.cc:1423-1467)
+    # ------------------------------------------------------------------
+
+    def run(self) -> dict:
+        """The whole pipeline; with ``cfg.profile_dir`` under
+        ``torch.profiler``, its chrome trace written there as
+        ``trace.json``."""
+        if not self.cfg.profile_dir:
+            return self._run()
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            out = self._run()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.cfg.profile_dir,
+                                              "trace.json"))
+        return out
+
+    def _run(self) -> dict:
+        cfg, g = self.cfg, self.grid
+        self.log(f"Running LOD {self.problem.name} problem in {cfg.dim}D")
+        sizes = self.topo.patch_sizes()
+        self.log(f"Number of coarse cell = {g.n_cells}, "
+                 f"number of patches = {self.topo.n_patches} "
+                 f"(locally owned: {self.topo.n_patches}) ")
+        self.log(f"Patches size in ({sizes.min()}, {sizes.max()})")
+
+        with self.timer.section("2: compute basis functions"):
+            self.compute_basis()
+        with self.timer.section("3: assemble global matrix"):
+            self.assemble_coarse_operator()
+        with self.timer.section("4: assemble fine FEM"):
+            self.assemble_fine_rhs()
+        self.log(f"     fem rhs l2 norm = "
+                 f"{float(torch.linalg.norm(self.fem_rhs)):.6g}")
+
+        results: dict = {}
+        exact = self.parse(cfg.exact_solution)
+
+        def table(label, dofs, u, **kw):
+            # the configured norms (LOD.h:150-156)
+            d = errors.error_norms(g, self.et, self.conn, u, **kw)
+            t = ConvergenceTable(label, dim=cfg.dim)
+            t.add_row(g.n_cells, dofs,
+                      {k: d[k] for k in cfg.error_norms if k in d})
+            return t
+
+        if cfg.solve_fine_problem:
+            with self.timer.section("4: solve fine FEM"):
+                self.solve_fine_fem()
+            self.log(f"   size of fem u {self.fem_solution.numel()}")
+            if cfg.constant_coefficients:
+                results["error_FEMh_exact"] = table(
+                    "errFEMh", g.n_fine_dofs, self.fem_solution,
+                    exact=exact, qpts=self.qpts)
+
+        with self.timer.section("4: solve coarse LOD"):
+            self.solve_coarse()
+        with self.timer.section("5: prolong + compare"):
+            self.prolong_lod_solution()
+
+        if cfg.constant_coefficients:
+            results["error_LOD_exact"] = table(
+                "errLOD", g.n_coarse_dofs, self.lod_solution, exact=exact,
+                qpts=self.qpts)
+        if cfg.solve_fine_problem:
+            results["error_LOD_FEMh"] = table(
+                "errLOD", g.n_coarse_dofs, self.lod_solution,
+                other=self.fem_solution)
+
+        # coarse Q1 FEM comparison: the reference runs it for spacedim == 2
+        # only (LOD.cc:1103)
+        if self.C == 2 or (self.C == cfg.dim and cfg.dim > 1):
+            with self.timer.section("4: coarse FEM comparison"):
+                self.solve_coarse_fem()
+            if cfg.solve_fine_problem:
+                results["error_FEMH_FEMh"] = table(
+                    "errFEM", g.n_coarse_dofs, self.coarse_fem_on_fine,
+                    other=self.fem_solution)
+            if cfg.constant_coefficients:
+                results["error_FEMH_exact"] = table(
+                    "errFEM", g.n_coarse_dofs, self.coarse_fem_on_fine,
+                    exact=exact, qpts=self.qpts)
+
+        for key, label in [("error_LOD_exact", "SLOD vs exact solution"),
+                           ("error_FEMH_exact", "FEM(H) vs exact solution"),
+                           ("error_FEMh_exact", "FEMh vs exact solution"),
+                           ("error_FEMH_FEMh", "FEM(H) vs reference FEM(h)"),
+                           ("error_LOD_FEMh", "SLOD vs reference FEM(h)")]:
+            if key in results:
+                self.log(label)
+                self.log(str(results[key]))
+
+        if cfg.write_output:
+            with self.timer.section("6: fine output"):
+                self.write_outputs()
+
+        if self.verbose:
+            self.log(self.timer.summary())
+        results["coarse_solution"] = self.coarse_solution
+        results["lod_solution"] = self.lod_solution
+        if cfg.solve_fine_problem:
+            results["fem_solution"] = self.fem_solution
+        return results
+
+    # ------------------------------------------------------------------
     # The pipeline step
     # ------------------------------------------------------------------
 
@@ -430,7 +748,8 @@ class LODSolver:
         ``prolong_lod_solution`` can follow it.  On the card the step, as
         every public stage, runs under ``full_f32_matmuls``."""
         if mesh is not None:
-            _not_ported("build_step(mesh=...) (patch-axis sharding)", "13")
+            _not_ported("build_step(mesh=...) (patch-axis sharding)",
+                        SCALING)
         return self._step
 
     @_full_f32

@@ -191,25 +191,51 @@ def stencil_trace(band: torch.Tensor, Xp: torch.Tensor, shiftN: int,
 
 
 # ---------------------------------------------------------------------------
-# Global fine grid: load vector and the unconstrained operator
+# Global fine grid: subcell matrices, load vector and the fine operator
 # ---------------------------------------------------------------------------
+
+def _check_coefs(what: str, coefs) -> None:
+    if set(coefs) not in ({"alpha"}, {"lam", "mu"}):
+        raise NotImplementedError(
+            f"{what}: coefficients {sorted(coefs)} (only diffusion's "
+            "'alpha' and elasticity's 'lam', 'mu' are ported; ROADMAP.md "
+            "Queue 1: reaction-diffusion and the device sampler)")
+
+
+def make_subcell_matrices(et: ElementTensors,
+                          coefs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Per-subcell element stiffness matrices from coefficient values
+    (..., n_sub, nq): ``alpha`` (scalar diffusion) or ``mu`` / ``lam``
+    (linear elasticity) -> (..., n_sub, m C, m C), local dof = node * C +
+    component."""
+    _check_coefs("make_subcell_matrices", coefs)
+    c0 = next(iter(coefs.values()))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=c0.dtype, device=c0.device)
+
+    if "alpha" in coefs:
+        return torch.einsum("...sq,qij->...sij", coefs["alpha"],
+                            t(et.K_grad))
+    return (torch.einsum("...sq,qIJ->...sIJ", coefs["mu"], t(et.K_mu))
+            + torch.einsum("...sq,qIJ->...sIJ", coefs["lam"], t(et.K_lam)))
+
 
 class FineOperator:
     """Matrix-free global Q_iso_Q1 stiffness operator on the fine grid:
     u -> scatter_add(conn, Ksub(coefs) @ gather(conn, u)), scalar diffusion
-    (``alpha``) or linear elasticity (``mu``, ``lam``).  Only the
-    unconstrained matvec is ported (the lifting of the Dirichlet data in
-    ``assemble_fine_rhs``)."""
+    (``alpha``) or linear elasticity (``mu``, ``lam``).  With
+    ``dirichlet_mask`` ((n_nodes,) bool, True on constrained nodes) the
+    call is the constrained operator: zero boundary values in, identity
+    rows out (the reference's AffineConstraints elimination)."""
 
     def __init__(self, et: ElementTensors, conn: torch.Tensor,
-                 coefs: Dict[str, torch.Tensor]):
-        if set(coefs) not in ({"alpha"}, {"lam", "mu"}):
-            raise NotImplementedError(
-                f"FineOperator: coefficients {sorted(coefs)} (only "
-                "diffusion's 'alpha' and elasticity's 'lam', 'mu' are "
-                "ported; ROADMAP.md Queue 1 item 12)")
+                 coefs: Dict[str, torch.Tensor],
+                 dirichlet_mask: torch.Tensor | None = None):
+        _check_coefs("FineOperator", coefs)
         self.conn = conn.long()
         self.coefs = coefs
+        self.dirichlet_mask = dirichlet_mask
         c0 = next(iter(coefs.values()))
 
         def t(a):
@@ -239,6 +265,35 @@ class FineOperator:
         out.index_add_(0, self.conn.reshape(-1),
                        out_flat.reshape(-1, u.shape[1]))
         return out
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        """Constrained matvec: the interior operator on interior dofs,
+        identity rows on Dirichlet dofs."""
+        if self.dirichlet_mask is None:
+            return self._apply_raw(u)
+        mask = self.dirichlet_mask[:, None]
+        out = self._apply_raw(torch.where(mask, 0.0, u))
+        return torch.where(mask, u, out)
+
+    def diagonal(self) -> torch.Tensor:
+        """Assembled matrix diagonal (n_nodes, C), 1 on Dirichlet dofs (the
+        Jacobi preconditioner)."""
+        n_nodes = (len(self.dirichlet_mask) if self.dirichlet_mask is not None
+                   else int(self.conn.max()) + 1)
+        if "alpha" in self.coefs:
+            dloc = torch.einsum("sq,qii->si", self.coefs["alpha"],
+                                self._K["alpha"])[..., None]
+        else:
+            dloc = sum(torch.einsum("sq,qII->sI", self.coefs[name],
+                                    self._K[name])
+                       for name in ("mu", "lam"))
+            dloc = dloc.reshape(dloc.shape[0], self.conn.shape[1], -1)
+        d = dloc.new_zeros((n_nodes, dloc.shape[-1]))
+        d.index_add_(0, self.conn.reshape(-1),
+                     dloc.reshape(-1, dloc.shape[-1]))
+        if self.dirichlet_mask is not None:
+            d = torch.where(self.dirichlet_mask[:, None], 1.0, d)
+        return d
 
 
 def assemble_load_vector(et: ElementTensors, conn: torch.Tensor,

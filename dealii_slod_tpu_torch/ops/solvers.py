@@ -1,5 +1,7 @@
-"""Preconditioned CG with deal.II ``ReductionControl`` semantics
-(counterpart of ``dealii_slod_tpu/ops/solvers.py: cg``)."""
+"""Preconditioned CG with deal.II ``ReductionControl`` semantics and dense
+SPD direct solves (counterpart of ``dealii_slod_tpu/ops/solvers.py``).
+The direct solves are Cholesky solves, also where the reference calls a
+general solve on a matrix that is SPD (``dense_dirichlet_solve``)."""
 
 from __future__ import annotations
 
@@ -66,3 +68,30 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             n_it = n_it + active.to(n_it.dtype)
             done = done | (_dot(r, r) <= thr2)
     return CGResult(x, n_it, torch.sqrt(_dot(r, r)), res0, done)
+
+
+def cholesky_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve A X = B given the Cholesky factor L of A (batched, multi-RHS):
+    (..., n, n) x (..., n, k) -> (..., n, k)."""
+    Y = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.mT, Y, upper=True)
+
+
+def spd_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Direct SPD solve (batched, multi-RHS)."""
+    return cholesky_solve(torch.linalg.cholesky(A), B)
+
+
+def dense_dirichlet_solve(A: torch.Tensor, b: torch.Tensor,
+                          constrained: torch.Tensor,
+                          values: torch.Tensor) -> torch.Tensor:
+    """Solve a dense system with Dirichlet constraints by row / column
+    projection: the constrained dofs' rows and columns become identity and
+    their values are lifted into the right-hand side (the coarse-FEM
+    comparison solve, reference SolverDirect).  The projected matrix is
+    SPD, so the solve is a Cholesky solve."""
+    mask = constrained.to(A.dtype)
+    keep = 1.0 - mask
+    A_bc = A * (keep[:, None] * keep[None, :]) + torch.diag(mask)
+    b_bc = keep * (b - (A * mask[None, :]) @ values) + mask * values
+    return spd_solve(A_bc, b_bc[:, None])[:, 0]

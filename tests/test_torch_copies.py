@@ -112,3 +112,19 @@ def test_coefficient_fields_match(field):
     jf = jax_coefficients.make_field(jax_config.SLODConfig(**kw), dim)
     pts = np.random.default_rng(1).uniform(0, 1, (200, dim))
     _equal(f(pts), jf(pts))
+
+
+@pytest.mark.parametrize("module", ["io", "native"])
+def test_utils_copies_match(module):
+    """``utils/io.py`` and ``utils/native.py``: the same source as the
+    originals but for the package name in the imports, the same native
+    library path, and the same bytes written for the same fields."""
+    import importlib
+    import inspect
+    mine = importlib.import_module(f"dealii_slod_tpu_torch.utils.{module}")
+    ref = importlib.import_module(f"dealii_slod_tpu.utils.{module}")
+    assert inspect.getsource(mine).replace(
+        "dealii_slod_tpu_torch", "dealii_slod_tpu") == inspect.getsource(ref)
+    if module == "native":
+        assert mine._LIB_PATH == ref._LIB_PATH
+

@@ -642,3 +642,28 @@ def test_small_elasticity_step_gpu_matches_cpu(cuda):
     assert all(kernels.launches[k] > 0 for k in (
         "K2 gj_inverse", "K4 mgs_qr", "K5 jacobi_eigh",
         "K6 spd_multirhs_solve", "K7 stencil_trace"))
+
+
+def test_default_run_gpu_matches_cpu(cuda):
+    """``run()`` on ``SLODConfig()`` (2D plain LOD, float64) on the card:
+    the golden fem rhs l2 norm and dof counts, every table equal to the CPU
+    run's to 1e-10, and K1, K2, K3 launched."""
+    cfg = SLODConfig()
+    out = {}
+    kernels.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        s = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device=dev,
+                         verbose=False)
+        out[str(dev)] = s.run()
+        assert abs(float(torch.linalg.norm(s.fem_rhs)) - 0.109375) <= 1e-15
+        assert s.fem_solution.numel() == 81
+        assert s.coarse_solution.numel() == 16
+    assert list(out["cuda"]) == list(out["cpu"])
+    for key, t in out["cpu"].items():
+        if not hasattr(t, "rows"):
+            continue
+        got = out["cuda"][key].rows[0][2]
+        for name, v in t.rows[0][2].items():
+            assert abs(got[name] - v) <= 1e-10 * abs(v), (key, name)
+    assert all(kernels.launches[k] > 0 for k in (
+        "K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace"))

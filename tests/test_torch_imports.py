@@ -1,9 +1,11 @@
 """The port's package boundary: it never loads jax or the JAX package,
 it runs on the card unless asked for the CPU and refuses a CUDA device that
 is not there, it resolves the "auto" knobs by the reference's rules, and it
-refuses every knob value it does not implement."""
+refuses every knob value it does not implement, naming its ROADMAP.md
+entry by title."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -66,6 +68,15 @@ def test_import_and_cpu_step_never_load_jax():
         u, A_st = s.build_step()(s.coef_q, s.fem_rhs)
         assert u.shape == (16, 2) and A_st.shape[-2:] == (2, 2)
         assert bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0
+        # the reference's default run and the modules it reaches
+        import dealii_slod_tpu_torch.cli
+        import dealii_slod_tpu_torch.utils.errors
+        import dealii_slod_tpu_torch.utils.io
+        import dealii_slod_tpu_torch.utils.native
+        cfg = pt.SLODConfig(solve_fine_problem=True)
+        out = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
+                           verbose=False).run()
+        assert "error_LOD_FEMh" in out
         loaded = sorted(m for m in sys.modules
                         if m in ("jax", "jaxlib", "dealii_slod_tpu")
                         or m.startswith(("jax.", "jaxlib.",
@@ -104,14 +115,15 @@ def test_entry_points_default_to_the_card():
     assert state.fem_rhs.dtype == torch.float32
 
 
-def test_auto_spectral_stage_on_cpu_raises():
+def test_auto_spectral_stage_on_cpu_is_eigh():
     """``eig_solver="auto"`` is smallk only on the card in float32; on the
-    CPU it names the LAPACK stage, which is not ported."""
+    CPU it names the LAPACK (``eigh``) stage, in either dtype, and the
+    solver builds on it instead of raising."""
     for dtype in ("float64", "float32"):
         cfg = tiny_cfg(eig_solver="auto", dtype=dtype)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
+        s = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
                          verbose=False)
+        assert s.spec_mode == "lapack"
 
 
 def test_auto_spectral_stage_resolution():
@@ -155,17 +167,21 @@ class _Elasticity:
     n_components = 3           # C = 3 components in 2D
 
 
-@pytest.mark.parametrize("knobs", [
-    dict(eig_solver="auto"),
-    dict(eig_solver="lapack"), dict(eig_solver="lax"),
-    dict(patch_solver="panel"),
-    dict(patch_solver="lax"), dict(kernel_mode="classes"),
-    dict(coarse_solve="direct"), dict(lod_stabilization=False),
-    dict(trace_kernel="off"), dict(fused_nb=128),
-    dict(assembly_mode="scatter"), dict(problem="elasticity"),
+UNSUPPORTED = [
+    dict(patch_solver="panel"), dict(kernel_mode="classes"),
+    dict(coarse_solve="direct"), dict(trace_kernel="off"),
+    dict(fused_nb=128), dict(assembly_mode="scatter"),
     dict(problem="elasticity", patch_solver="fused_split", panel_nb=96),
-], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
-def test_unsupported_knobs_raise(knobs):
+]
+
+
+def _ids(k):
+    return "-".join(f"{a}={b}" for a, b in k.items())
+
+
+def _refusal(knobs):
+    """The NotImplementedError that building a solver with ``knobs``
+    raises."""
     knobs = dict(knobs)
     elastic = knobs.pop("problem", None) == "elasticity"
     cfg = tiny_cfg(**knobs)
@@ -175,8 +191,80 @@ def test_unsupported_knobs_raise(knobs):
         problem = pt.ElasticityProblem(cfg)
     else:
         problem = _Elasticity()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError) as info:
         pt.LODSolver(cfg, problem, device="cpu", verbose=False)
+    return str(info.value)
+
+
+@pytest.mark.parametrize("knobs", UNSUPPORTED + [dict(problem="elasticity")],
+                         ids=_ids)
+def test_unsupported_knobs_raise(knobs):
+    """Every knob value the port does not implement raises, naming its
+    ROADMAP.md entry; C = 3 components in 2D, which no problem of the
+    reference has, raises saying so."""
+    msg = _refusal(knobs)
+    if knobs == dict(problem="elasticity"):
+        assert "C = 1 or dim" in msg
+    else:
+        assert "ROADMAP.md Queue 1: " in msg
+
+
+def _queue1_text():
+    with open(os.path.join(REPO, "ROADMAP.md")) as fh:
+        text = fh.read()
+    return text.split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
+
+
+def test_refusals_name_a_queue1_title():
+    """Each refusal names a Queue 1 entry of ROADMAP.md by its title (a
+    bold item heading there), so renumbering the queue cannot break it:
+    the knob refusals, the coefficient sets, the sharded step and the
+    CLI's reaction problem."""
+    from dealii_slod_tpu_torch.models import lod
+    from dealii_slod_tpu_torch.ops.assembly import FineOperator
+    msgs = [_refusal(k) for k in UNSUPPORTED]
+    s = pt.LODSolver(tiny_cfg(), pt.DiffusionProblem(tiny_cfg()),
+                     device="cpu", verbose=False)
+    for call in (lambda: s.build_step(mesh=object()),
+                 lambda: FineOperator(s.et, s.conn,
+                                      {"alpha": s.coef_q["alpha"],
+                                       "creact": s.coef_q["alpha"]})):
+        with pytest.raises(NotImplementedError) as info:
+            call()
+        msgs.append(str(info.value))
+    headings = [h.lower() for h in
+                re.findall(r"^\d+\. \*\*(.+?)\.?\*\*", _queue1_text(),
+                           re.M)]
+    titles = {lod.ROUTES, lod.REACTION, lod.SCALING}
+    for msg in msgs:
+        title = re.search(r"ROADMAP\.md Queue 1: ([^)]+)\)", msg).group(1)
+        assert title in titles, msg
+    for title in titles:
+        assert any(h.startswith(title) for h in headings), (title, headings)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(eig_solver="auto"),
+    dict(eig_solver="lapack"), dict(eig_solver="lax"),
+    dict(patch_solver="lax"), dict(lod_stabilization=False),
+], ids=_ids)
+def test_reference_knobs_build_and_step_on_cpu(knobs):
+    """The reference's default method (plain LOD), its CPU spectral stage
+    (``eigh``: "auto" on the CPU, "lapack", "lax") and its per-patch
+    Cholesky solve build and step on the CPU: finite, non-zero u and a
+    converged coarse CG."""
+    cfg = tiny_cfg(**knobs)
+    s = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
+                     verbose=False)
+    s.assemble_fine_rhs()
+    u, A_st = s.build_step()(s.coef_q, s.fem_rhs)
+    assert u.shape == (16, 1) and A_st.shape[-2:] == (1, 1)
+    assert bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0
+    assert bool(s.coarse_cg.converged)
+    if "eig_solver" in knobs:
+        assert s.spec_mode == ("lapack" if knobs["eig_solver"] == "auto"
+                               else knobs["eig_solver"])
+    assert s.solver_mode == knobs.get("patch_solver", "fused")
 
 
 def test_sharded_step_raises():
