@@ -111,7 +111,21 @@ Phases (each prints its numbers; any failure exits non-zero):
    directory: rc 0, the parameter dump and three VTU files, the launches
    its code path implies, tables and LOD field within ``CLI_F32_BOUND``
    of the same configuration's float32 run on the CPU).  Each prints its
-   stage walls, peak memory, tables and launches.
+   stage walls, peak memory, tables and launches;
+11. routes: the remaining basis and coarse routes.  The classes oracle:
+   3D refine-3 l=2 (512 patches) in float64, the uniform default route
+   (K1, K2, K3, the eigh stage) against ``kernel_mode="classes"`` (no
+   kernel) with SLOD and plain LOD on the random field, and with SLOD on
+   a constant field, where the uniform route dedups (``CLASSES_BOUND``);
+   ``patch_solver="panel"`` on the 4096-patch main configuration beside
+   the fused step, in turns in one process (walls, patches/s, K2's
+   launches), its prolonged field against the fused step's in float64
+   and its float32 X and T in K1's float32 gate on every chunk; the
+   direct coarse solve on the 4096-patch float64 step against CG (walls);
+   a basis checkpoint saved and loaded on the card; the scatter assembly
+   and ``trace_kernel="off"`` (no K3) against the default route at
+   refine-3 float64; and the examples ``convergence_study
+   --refinements 3 4 5`` and ``multi_rhs`` on the card.
 
 Every path counts its kernel launches from 0, set just before its first
 call and read just after its last; each K4 row's device time per step of
@@ -134,7 +148,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "el-kernels", "e2e-f64", "jacobi",
-          "main", "weig", "elasticity", "run")
+          "main", "weig", "elasticity", "run", "routes")
 # H100 SXM: float32 outside the tensor cores, float64 on them (DMMA)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
@@ -194,6 +208,24 @@ PATH_KERNELS = {
     "run-slod-eigh-f64": _MAIN[:3],
     "run-elasticity": _ELASTIC,
     "run-cli": _MAIN[:3],
+    # the routes phase: the classes route runs no kernel; the uniform
+    # default route at refine-3 f64 runs the eigh stage (no K4 / K5); the
+    # panel route K2 on its diagonal blocks and no K1; scatter and "off"
+    # no K3; the direct coarse solve no kernel of its own
+    "routes-classes-slod": (),
+    "routes-classes-lod": (),
+    "routes-classes-slod-const": (),
+    "routes-uniform-slod": _MAIN[:3],
+    "routes-uniform-lod": _MAIN[:3],
+    "routes-uniform-slod-const": _MAIN[:3],
+    "routes-panel-f32": _MAIN[1:],
+    "routes-fused-f32": _MAIN,
+    "routes-panel-f64": _MAIN[1:],
+    "routes-fused-f64": _MAIN,
+    "routes-default-r3-f64": _MAIN[:3],
+    "routes-scatter-r3-f64": _MAIN[:2],
+    "routes-off-r3-f64": _MAIN[:2],
+    "routes-direct-f64": _MAIN,
 }
 # a weig path's prolonged field against the same dtype's path with K5 on
 # the symmetrized W (the weig path -> (that path, bound)): each bound is 10x
@@ -218,6 +250,25 @@ EIGH_CPU_BOUND = 1e-10
 # LOD field, relative; 10x the float32-vs-float64 differences of that run
 # on the CPU (<= 8.8e-7 in the tables, 7.3e-7 in the field)
 CLI_F32_BOUND = 1e-5
+# routes phase: the classes oracle's cases (3D refine-3 l=2 float64, the
+# uniform default route against kernel_mode="classes") and their Phi bounds:
+# 3e-7 with SLOD and 1e-11 for plain LOD (tests/test_uniform.py's), or 10x
+# the same two routes' gap on the CPU where that is larger
+# (scripts/classes_gap.py: 8.906e-07 with SLOD, 1.027e-15 plain, 1.285e-05
+# with SLOD on the constant field, the uniform route deduped)
+CLASSES_CASES = {"slod": {}, "lod": dict(lod_stabilization=False),
+                 "slod-const": dict(constant_coefficients=True)}
+CLASSES_BOUND = {"slod": 8.906e-06, "lod": 1e-11, "slod-const": 1.285e-04}
+# the panel step's prolonged field against the fused step's (float64,
+# 4096 patches, smallk); scatter and "off" against the default route
+# (refine-3 float64, eigh): "off" at 1e-10, scatter at 10x the largest
+# difference measured on an H100 (1.597e-10), since index_add_ on CUDA
+# adds in no fixed order and the eigh stage carries that rounding into
+# the field; the direct coarse solution against a CG solve to 1e-12 on
+# the same operator
+PANEL_F64_BOUND = 1e-9
+ROUTE_FIELD_BOUND = {"scatter": 1.6e-9, "off": 1e-10}
+DIRECT_BOUND = 1e-6
 WEIG_FIELD_BOUND = {
     "weig-f64": ("main-f64", 1.084e-11),
     "elasticity-r3-weig-f32": ("elasticity-r3-f32", 5.708e-06),
@@ -270,32 +321,43 @@ def make_solver(cfg, elastic, **kw):
 
 
 def expected_launches(s):
-    """Kernel launches per step that the solver's code path implies: per
-    chunk the patch solve (K1 once, K6 once per leaf of the Schur split,
-    none for the per-patch Cholesky solve), K2 once per 128-pivot of T^-1
-    and, on the smallk route, of (G + delta I)^-1, A phi and, with SLOD,
-    the trace (K3 at C = 1, K7 at C > 1), and the spectral stage (smallk:
-    K4 per subspace step and K5, or K8, once; Jacobi: K5 once; eigh: no
-    kernel)."""
-    from dealii_slod_tpu_torch.ops.patch_solve import GJ_PAD, split_leaves
+    """Kernel launches per basis build that the solver's code path implies:
+    per chunk of the patches it built (``s.basis_patches``: all P, or the
+    unique window signatures of a deduped constant field) the patch solve
+    (K1 once, K6 once per leaf of the Schur split, K2 once per diagonal
+    block of the panel LDL^T, none for the per-patch Cholesky solve), K2
+    once per 128-pivot of T^-1 and, on the smallk route, of
+    (G + delta I)^-1, A phi and, with SLOD, the trace (K3 at C = 1, K7 at
+    C > 1; neither under ``trace_kernel="off"`` or the scatter assembly),
+    and the spectral stage (smallk: K4 per subspace step and K5, or K8,
+    once; Jacobi: K5 once; eigh: no kernel).  The classes route launches
+    no kernel."""
+    from dealii_slod_tpu_torch.ops.patch_solve import (GJ_PAD,
+                                                       panel_k2_launches,
+                                                       split_leaves)
+    if s.cfg.kernel_mode != "uniform":
+        return {}
     tab = s._tables
     per = {}
+    smallk = tab.slod and tab.spec_mode == "smallk"
+    per["K2 gj_inverse"] = -(-tab.cD // GJ_PAD) * (2 if smallk else 1)
     if tab.solver_mode == "fused_split":
         per["K6 spd_multirhs_solve"] = len(split_leaves(tab.nI, tab.cD,
                                                         tab.panel_nb))
     elif tab.solver_mode == "fused":
         per["K1 fused_spd_multirhs"] = 1
-    smallk = tab.slod and tab.spec_mode == "smallk"
-    per["K2 gj_inverse"] = -(-tab.cD // GJ_PAD) * (2 if smallk else 1)
-    per["K3 stencil_trace" if tab.C == 1 else "K7 stencil_trace"] = \
-        2 if tab.slod else 1
+    elif tab.solver_mode == "panel":
+        per["K2 gj_inverse"] += panel_k2_launches(tab.nI, tab.panel_nb)
+    if tab.trace_kernel and not tab.scatter:
+        per["K3 stencil_trace" if tab.C == 1 else "K7 stencil_trace"] = \
+            2 if tab.slod else 1
     if smallk:
         per["K4 mgs_qr"] = max(1, tab.smallk_power)
         per["K8 weig" if tab.smallk_weig else "K5 jacobi_eigh"] = 1
     elif tab.slod and tab.spec_mode == "jacobi":
         per["K5 jacobi_eigh"] = 1
-    P = s.topo.n_patches
-    chunks = -(-P // (s.cfg.patch_chunk or P))
+    B = s.basis_patches
+    chunks = -(-B // (s.cfg.patch_chunk or B))
     return {k: v * chunks for k, v in per.items()}
 
 
@@ -835,14 +897,16 @@ def spmm_check(name, lib, band, Xp, tab):
           "function")
 
 
-def f32_gate_all_chunks(s, tab, name, chunk=128):
+def f32_gate_all_chunks(s, tab, name, chunk=128, solve=None):
     """The float32 gate of ``check_case`` (error against the float64 plain
     version <= 4x the float32 plain version's + 1e-6) on the real
     operators of every chunk of the configuration: K1's X and T, or, on
     the elasticity configuration, K6's X at every leaf of the Schur split;
     and the trace (K3, or K7) on the chunk's band and the X that solve
-    gives (the split's X assembled from its plain leaves).  Prints the
-    worst error-to-gate ratio of each; fails where one exceeds 1."""
+    gives (the split's X assembled from its plain leaves).  With ``solve``
+    (A, B) -> (X, T) in place of K1 (the panel route), that solve's X and
+    T alone.  Prints the worst error-to-gate ratio of each; fails where
+    one exceeds 1."""
     import torch
     from dealii_slod_tpu_torch.models import basis
     from dealii_slod_tpu_torch.ops import assembly, patch_solve
@@ -852,6 +916,7 @@ def f32_gate_all_chunks(s, tab, name, chunk=128):
     _, nlo, nhi, _ = s._uniform_inputs()
     trace = "K3 stencil_trace" if tab.C == 1 else "K7 stencil_trace"
     worst = {name: (0.0, None, 0.0, 0.0), trace: (0.0, None, 0.0, 0.0)}
+    solve = solve or patch_solve.fused_spd_multirhs
     n_cases = 0
 
     def gate(kname, e, base, where):
@@ -879,7 +944,7 @@ def f32_gate_all_chunks(s, tab, name, chunk=128):
                            ref)
             else:
                 ref = patch_solve.fused_spd_multirhs_plain(a, b)
-                out = patch_solve.fused_spd_multirhs(a32, b32)
+                out = solve(a32, b32)
                 pl = patch_solve.fused_spd_multirhs_plain(a32, b32)
                 e = max(rel(o, r) for o, r in zip(out, ref))
                 base = max(rel(o, r) for o, r in zip(pl, ref))
@@ -888,6 +953,9 @@ def f32_gate_all_chunks(s, tab, name, chunk=128):
             gate(name, e, base, f"patches {p0}.., leaf {i + 1}" if split
                  else f"patches {p0}..")
         del ops
+        if solve is not patch_solve.fused_spd_multirhs:
+            del band, X
+            continue
         Xp = trace_operand(tab, X)
         args = (tab.shiftN, tab.offs_flat)
         ref = assembly.stencil_trace_plain(band, Xp, *args)
@@ -897,8 +965,10 @@ def f32_gate_all_chunks(s, tab, name, chunk=128):
              f"patches {p0}..")
         del band, X, Xp, ref, b32, x32
     n_chunks = -(-s.topo.n_patches // chunk)
-    for kname, count in ((name, f"{n_cases} solves"),
-                         (trace, f"{n_chunks} traces")):
+    gates = [(name, f"{n_cases} solves")]
+    if solve is patch_solve.fused_spd_multirhs:
+        gates.append((trace, f"{n_chunks} traces"))
+    for kname, count in gates:
         w = worst[kname]
         print(f"[kernels] {kname}: float32 gate on every chunk ({count}): "
               f"worst error / gate {w[0]:.4f} at {w[1]} (err {w[2]:.3e}, "
@@ -1528,58 +1598,39 @@ def run_path(path, cfg, timed, profile=False, elastic=False):
     """Drive one path through ``LODSolver(cfg, problem).build_step()`` on
     the card: the launch counts are set to 0 just before the first call
     and read just after the last, and must equal what the code path
-    implies; returns (solver, per-path numbers)."""
+    implies (``drive``); returns (solver, per-path numbers)."""
     import torch
-    from dealii_slod_tpu_torch.utils import kernels
 
     s = make_solver(cfg, elastic)
     P = s.topo.n_patches
     s.assemble_fine_rhs()
     step = s.build_step()
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    u, _ = step(s.coef_q, s.fem_rhs)
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
-    walls = []
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        u, _ = step(s.coef_q, s.fem_rhs)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    counts = dict(kernels.launches)
+    u, nums = drive(path, s, lambda: step(s.coef_q, s.fem_rhs)[0],
+                    calls=1 + timed)
     peak = torch.cuda.max_memory_allocated()
+    first, walls = nums["walls"][0], nums["walls"][1:]
     wall = min(walls) if walls else first
     res = s.coarse_cg
-    calls = 1 + timed
-    per_step = {k: v / calls for k, v in sorted(counts.items())}
-    expected = expected_launches(s)
     print(f"[{path}] {P} patches C={s.C} {cfg.dtype} (patch solver "
           f"{s.solver_mode}, spectral stage {s.spec_mode}): "
           f"{P / wall:.1f} patches/s; first call {first:.3f} s; steady wall "
           f"{wall:.3f} s (calls {walls}); peak {peak / 2**30:.2f} GiB; CG "
-          f"{int(res.n_iter)} it converged {bool(res.converged)}; launches "
-          f"in {calls} calls {counts}, per step {per_step}, expected "
-          f"{expected}")
+          f"{int(res.n_iter)} it converged {bool(res.converged)}")
     if s.solver_mode == "fused_split":
         from dealii_slod_tpu_torch.ops.patch_solve import split_leaves
         tab = s._tables
         rule = split_leaves(tab.nI, tab.cD, tab.panel_nb)
         print(f"[{path}] split leaves (n, k) per chunk, by the rule (the K6 "
               f"count above holds the run to their number): {rule}")
-    check(all(counts.get(k, 0) > 0 for k in PATH_KERNELS[path]),
-          f"a kernel of the {path} path was not launched: {counts}")
-    check(per_step == expected,
-          f"{path}: launches per step differ from the expected counts")
     check(bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0,
           f"{path}: u is not finite and non-zero")
     check(bool(res.converged), f"{path}: coarse CG did not converge")
     if profile:
         profile_step(path, step, s)
-    return s, dict(counts=counts, per_step=per_step, patches_per_s=P / wall,
-                   first_call_s=first, steady_wall_s=wall, peak_bytes=peak)
+    return s, dict(counts=nums["counts"], per_step=nums["per_step"],
+                   patches_per_s=P / wall, first_call_s=first,
+                   steady_wall_s=wall, peak_bytes=peak)
 
 
 def phase_jacobi(profile=False):
@@ -1700,7 +1751,9 @@ def run_solver(path, cfg, elastic=False):
           f"(LOD{' + SLOD' * s._tables.slod}, patch solver {s.solver_mode}"
           f", spectral stage {s.spec_mode if s._tables.slod else 'none'}): "
           f"run() {wall:.3f} s; stage walls (s) {stages}; peak "
-          f"{peak / 2**30:.2f} GiB; launches {counts}, expected {expected}")
+          f"{peak / 2**30:.2f} GiB; basis built for {s.basis_patches} of "
+          f"{s.topo.n_patches} patches (the unique window signatures of a "
+          f"constant field, or all); launches {counts}, expected {expected}")
     tables = {k: t.rows[0][2] for k, t in out.items() if hasattr(t, "rows")}
     for k, t in tables.items():
         print(f"[{path}]   {k}: {t}")
@@ -1738,12 +1791,7 @@ def eigh_step_field(cfg, device="cuda", stage=None, pert=0.0):
         check(s.spec_mode in ("lapack", "lax"),
               f"not the eigh stage: {s.spec_mode!r}")
         s.assemble_fine_rhs()
-        gen = torch.Generator().manual_seed(0)
-        coef = {k: v * (1 + pert * torch.randn(
-                    v.shape, generator=gen, dtype=torch.float64).to(v))
-                for k, v in s.coef_q.items()}
-        s.build_step()(coef, s.fem_rhs)
-        return s.prolong_lod_solution()
+        return step_field(s, pert)
     finally:
         torch.linalg.eigh = eigh
 
@@ -1957,6 +2005,234 @@ def phase_run():
     return paths
 
 
+def drive(path, s, fn, calls=1):
+    """Run ``fn()`` (one basis build or step of solver ``s``) ``calls``
+    times on the card: the launch counts are set to 0 just before the first
+    call and read just after the last, and per call must equal what the
+    code path implies (``expected_launches``; every kernel of
+    ``PATH_KERNELS[path]`` launched, none where the path names none);
+    returns (the last call's result, per-path numbers)."""
+    import torch
+    from dealii_slod_tpu_torch.utils import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = dict(kernels.launches)
+    per_step = {k: v / calls for k, v in sorted(counts.items())}
+    expected = expected_launches(s)
+    print(f"[{path}] walls {walls} s; basis built for {s.basis_patches} of "
+          f"{s.topo.n_patches} patches; launches in {calls} calls {counts}, "
+          f"per call {per_step}, expected {expected}")
+    check(all(counts.get(k, 0) > 0 for k in PATH_KERNELS[path])
+          and (PATH_KERNELS[path] or not counts),
+          f"{path}: the path's kernels were not launched as named: {counts}")
+    check(per_step == expected, f"{path}: launches per call differ from "
+          "the expected counts")
+    return out, dict(counts=counts, per_step=per_step, walls=walls,
+                     wall_s=min(walls))
+
+
+def step_field(s, pert=0.0):
+    """One step of solver ``s`` on its own field, moved by ``pert``
+    relative (seeded normal noise), and its rhs -> the prolonged LOD
+    field."""
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    coef = {k: v * (1 + pert * torch.randn(
+                v.shape, generator=gen, dtype=torch.float64).to(v))
+            for k, v in s.coef_q.items()}
+    s.build_step()(coef, s.fem_rhs)
+    return s.prolong_lod_solution()
+
+
+def phase_routes(card):
+    """The remaining basis and coarse routes on the card: the classes
+    oracle against the uniform kernel route (3D refine-3 l=2, float64),
+    the panel LDL^T on the 4096-patch main configuration beside the fused
+    step, the scatter assembly and the scan trace against the default
+    route, the direct coarse solve against CG, a basis checkpoint, and the
+    two examples; returns the per-path numbers by path."""
+    import tempfile
+
+    import torch
+    from dealii_slod_tpu_torch.examples import convergence_study, multi_rhs
+    from dealii_slod_tpu_torch.ops import patch_solve
+    from dealii_slod_tpu_torch.utils import checkpoint, kernels
+
+    paths, t_phase = {}, time.perf_counter()
+
+    # 1. the classes oracle: uniform default route (K1, K2, K3, eigh)
+    # against kernel_mode="classes" (no kernel), and a deduped constant
+    # field against classes, which builds every patch
+    for case, kw in CLASSES_CASES.items():
+        out = {}
+        for mode in ("uniform", "classes"):
+            path = f"routes-{mode}-{case}"
+            s = make_solver(bench_cfg("float64", n_global_refinements=3,
+                                      kernel_mode=mode, **kw), False)
+            out[mode], paths[path] = drive(path, s, s.compute_basis)
+            if mode == "uniform":
+                dd = s._patch_dedup(*s._uniform_inputs()[1:])
+                check(s.basis_patches == (len(dd[0]) if dd
+                                          else s.topo.n_patches),
+                      f"{path}: {s.basis_patches} patches built, not the "
+                      "unique window signatures of a constant field, or "
+                      "all")
+            P = s.topo.n_patches
+            del s
+        gaps = [float((a - b).abs().max())
+                for a, b in zip(out["uniform"], out["classes"])]
+        print(f"[routes] classes oracle ({case}, {P} patches, f64): "
+              f"uniform vs classes Phi {gaps[0]:.3e} (<= "
+              f"{CLASSES_BOUND[case]:.3e}), APhi {gaps[1]:.3e}")
+        check(gaps[0] <= CLASSES_BOUND[case],
+              f"routes: the classes oracle disagrees ({case})")
+        del out
+
+    # 2. panel on the 4096-patch main configuration, beside the fused step
+    # in the same process, in turns: fused, panel, panel, fused
+    fields = {}
+    for dtype in ("float64", "float32"):
+        kw = dict(eig_solver="smallk") if dtype == "float64" else {}
+        tag = "f" + dtype[5:]
+        sv = {m: make_solver(bench_cfg(dtype, patch_solver=p, **kw), False)
+              for m, p in (("panel", "panel"), ("fused", "auto"))}
+        walls = {m: [] for m in sv}
+        for m, si in sv.items():
+            si.assemble_fine_rhs()
+            fields[(m, dtype)], _ = drive(f"routes-{m}-{tag}", si,
+                                          lambda si=si: step_field(si))
+        for m in ("fused", "panel", "panel", "fused"):
+            _, paths[f"routes-{m}-{tag}"] = drive(
+                f"routes-{m}-{tag}", sv[m],
+                lambda si=sv[m]: si.build_step()(si.coef_q, si.fem_rhs))
+            walls[m].append(paths[f"routes-{m}-{tag}"]["wall_s"])
+        P, tab = sv["panel"].topo.n_patches, sv["panel"]._tables
+        k2 = paths[f"routes-panel-{tag}"]["counts"].get("K2 gj_inverse", 0)
+        print(f"[routes] panel vs fused, {P} patches {dtype} [{card}]: "
+              f"steady wall panel {min(walls['panel']):.3f} s "
+              f"({P / min(walls['panel']):.1f} patches/s; calls "
+              f"{walls['panel']}), fused {min(walls['fused']):.3f} s "
+              f"({P / min(walls['fused']):.1f} patches/s; calls "
+              f"{walls['fused']}); K2 launches a panel step {k2} (a "
+              f"chunk: {patch_solve.panel_k2_launches(tab.nI, tab.panel_nb)}"
+              f" diagonal blocks, T^-1, (G + delta I)^-1)")
+        if dtype == "float64":
+            e = rel(fields[("panel", dtype)], fields[("fused", dtype)])
+            print(f"[routes] panel vs fused prolonged field, float64: "
+                  f"{e:.3e} (<= {PANEL_F64_BOUND:.0e})")
+            check(e <= PANEL_F64_BOUND,
+                  "routes: the panel and fused f64 fields disagree")
+            sp64, sf64 = sv["panel"], sv["fused"]
+        else:
+            e = rel(fields[("panel", dtype)], fields[("fused", dtype)])
+            print(f"[routes] panel vs fused prolonged field, float32: "
+                  f"{e:.3e}")
+            del sv
+    # the panel's float32 X and T on every chunk, in K1's float32 gate
+    tab = sp64._uniform_tables()
+    f32_gate_all_chunks(sp64, tab, "panel_spd_multirhs",
+                        solve=lambda a, b: patch_solve.panel_spd_multirhs(
+                            a, b, nb=tab.panel_nb))
+    del sp64
+
+    # 3. the direct coarse solve against CG on the 4096-patch f64 basis
+    sd = make_solver(bench_cfg("float64", eig_solver="smallk",
+                               coarse_solve="direct"), False)
+    sd.assemble_fine_rhs()
+    (u_d, A_st), paths["routes-direct-f64"] = drive(
+        "routes-direct-f64", sd,
+        lambda: sd.build_step()(sd.coef_q, sd.fem_rhs))
+    check(sd.coarse_cg is None, "routes: the direct route ran CG")
+    rhs = sd._coarse_rhs(sd.Phi, sd.fem_rhs)
+    walls = {}
+    for name, fn in (("direct", lambda: sd._coarse_direct_fn(A_st)(rhs)),
+                     ("cg", lambda: sf64._coarse_cg(A_st, rhs).x)):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        walls[name + "_x"] = x
+    from dealii_slod_tpu_torch.ops.solvers import cg
+    tight = cg(sf64._coarse_matvec_fn(A_st), rhs, max_steps=4000,
+               tolerance=1e-12, reduce=1e-12,
+               precond=lambda r: r / torch.einsum(
+                   "pdd->pd", A_st[:, sf64.center_offset_idx]))
+    e_d = rel(u_d, tight.x)
+    e_cg = rel(walls["cg_x"], tight.x)
+    print(f"[routes] direct coarse solve, {A_st.shape[0]} coarse dofs f64 "
+          f"[{card}]: factor + solve {walls['direct']:.4f} s, CG "
+          f"(reduce {sf64.cfg.coarse_solver.reduce:g}) "
+          f"{walls['cg']:.4f} s; against CG to 1e-12 ({int(tight.n_iter)} "
+          f"it): direct {e_d:.3e} (<= {DIRECT_BOUND:.0e}), the bench CG "
+          f"{e_cg:.3e}")
+    check(e_d <= DIRECT_BOUND, "routes: the direct and CG coarse "
+          "solutions disagree")
+
+    # 4. a checkpoint saved on the card loads into a new solver, whose
+    # solve_coarse gives the same solution
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save_basis(sd, os.path.join(tmp, "basis.npz"))
+        fresh = make_solver(sd.cfg, False)
+        check(checkpoint.load_basis(fresh, path),
+              "routes: the checkpoint did not load")
+        for si in (fresh, sd):
+            si.fem_rhs = sd.fem_rhs
+        e_c = rel(fresh.solve_coarse(), sd.solve_coarse())
+        print(f"[routes] checkpoint ({os.path.getsize(path) / 2**20:.1f} "
+              f"MiB) saved and loaded on the card: solve_coarse rel max "
+              f"diff {e_c:.3e} (<= 1e-12)")
+        check(e_c <= 1e-12, "routes: the loaded basis solves differently")
+    del sd, sf64, fresh
+
+    # 5. scatter and the scan trace against the default route, refine-3
+    # f64 (eigh)
+    cfg3 = dict(n_global_refinements=3)
+    f3 = {}
+    for name, kw in (("default", {}), ("scatter", dict(assembly_mode=
+                                                       "scatter")),
+                     ("off", dict(trace_kernel="off"))):
+        si = make_solver(bench_cfg("float64", **cfg3, **kw), False)
+        si.assemble_fine_rhs()
+        f3[name], paths[f"routes-{name}-r3-f64"] = drive(
+            f"routes-{name}-r3-f64", si, lambda si=si: step_field(si))
+        if name == "scatter":
+            again = rel(step_field(si), f3[name])
+        del si
+    print(f"[routes] scatter run to run on the same inputs, refine-3 f64: "
+          f"prolonged field {again:.3e}")
+    for name, bound in ROUTE_FIELD_BOUND.items():
+        e = rel(f3[name], f3["default"])
+        print(f"[routes] {name} vs the default route, refine-3 f64: "
+              f"prolonged field {e:.3e} (<= {bound:.1e})")
+        check(e <= bound, f"routes: {name} disagrees with the default")
+
+    # 6. the examples on the card, in this process
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    convergence_study.main(["--refinements", "3", "4", "5"])
+    print(f"[routes] convergence_study --refinements 3 4 5 on the card in "
+          f"{time.perf_counter() - t0:.2f} s; launches "
+          f"{dict(kernels.launches)}")
+    res = multi_rhs.main([])
+    walls = res["serve_s"]
+    print(f"[routes] multi_rhs (defaults) [{card}]: basis "
+          f"{res['basis_s']:.3f} s, median serve "
+          f"{1e3 * sorted(walls)[len(walls) // 2]:.3f} ms over "
+          f"{len(walls)} load cases ({res['mode']})")
+    check(all(bool(torch.isfinite(u).all()) for u in res["solutions"]),
+          "routes: multi_rhs served a non-finite solution")
+    print(f"[routes] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2014,6 +2290,8 @@ def main():
             paths.update(phase_elasticity(args.profile))
         if "run" in phases:
             paths.update(phase_run())
+        if "routes" in phases:
+            paths.update(phase_routes(card))
     except Exception as exc:                     # any phase failure
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr)

@@ -18,7 +18,10 @@ on the card in float32 and the ``eigh`` stage ("lapack") elsewhere, also
 "smallk", "jacobi", "lapack" / "lax"; ``patch_solver="auto"`` applies the
 reference's size rule (the fused patch solve, its 2x2 Schur split where
 the block is too large, as 3D elasticity's), also "lax" (the per-patch
-Cholesky solve)::
+Cholesky solve) and "panel"; ``kernel_mode="classes"``,
+``assembly_mode="scatter"``, ``trace_kernel="off"`` and
+``coarse_solve="direct"``; basis checkpoints (``utils/checkpoint.py``)
+and the examples (``python -m dealii_slod_tpu_torch.examples.<name>``)::
 
     cfg = SLODConfig()                                  # 2D plain LOD, f64
     results = LODSolver(cfg, DiffusionProblem(cfg)).run()   # on the card
@@ -28,8 +31,9 @@ Cholesky solve)::
 
 and the command line, ``python -m dealii_slod_tpu_torch.cli
 diffusion|elasticity [file.prm] [--device cpu]``.  ``LODSolver`` and the
-CLI run on the card unless given ``device="cpu"``.  Every other knob value
-raises ``NotImplementedError`` naming its ROADMAP.md entry.
+CLI run on the card unless given ``device="cpu"``.  Other coefficient
+sets and the sharded step raise ``NotImplementedError`` naming their
+ROADMAP.md entry.
 """
 
 __version__ = "0.1.0"

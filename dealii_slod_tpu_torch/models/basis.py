@@ -14,11 +14,15 @@ product.  Each function below works on a batch (chunk) of B patches.
 
 Per chunk (reference source/LOD.cc:296-768):
 
-1. ``prep``: bands, the SPD interior block A, the masked projection PT;
-2. X = A^-1 PT and T = PT^T X (K1, the Schur split with K6 leaves, or
-   ``patch_solver="lax"``'s per-patch Cholesky solve), T^-1 (K2, blocked
-   beyond 128);
-3. SLOD only: the patch-boundary trace S = A X (K3 / K7) and the Gram
+1. ``prep``: bands (or, with ``assembly_mode="scatter"``, the dense
+   interior rows of the scatter-added stiffness), the SPD interior block
+   A, the masked projection PT;
+2. X = A^-1 PT and T = PT^T X (K1, the Schur split with K6 leaves, the
+   panel LDL^T with K2 on its diagonal blocks, or ``patch_solver="lax"``'s
+   per-patch Cholesky solve), T^-1 (K2, blocked beyond 128);
+3. SLOD only: the patch-boundary trace S = A X (K3 / K7; under
+   ``trace_kernel="off"`` their plain version; with the scatter
+   assembly a contraction of the dense rows) and the Gram
    F = BD^T BD, C Grams per patch from one F;
 4. SLOD only: the stabilization coefficients dvec on the B C Grams: the
    smallk stage (K2, K4, K5 or K8 on the smallest directions), the Jacobi
@@ -27,7 +31,7 @@ Per chunk (reference source/LOD.cc:296-768):
    by ``torch.linalg.eigh``, as JAX computes it in XLA), each but smallk
    followed by the truncated pseudo-inverse solve;
 5. the C candidates (plain LOD: X T^-1 at the centre dofs) and A phi
-   (K3 / K7).
+   (as the trace).
 """
 
 from __future__ import annotations
@@ -41,16 +45,20 @@ import torch.nn.functional as F
 from dealii_slod_tpu_torch.grid import cartesian_coords
 from dealii_slod_tpu_torch.grid import rev_dims as _rev
 from dealii_slod_tpu_torch.ops.assembly import (assemble_bands,
+                                                assemble_dense_batch,
                                                 band_placement_matrix,
                                                 bands_to_dense_mm,
                                                 make_band_tensors,
-                                                stencil_trace)
+                                                make_subcell_matrices,
+                                                stencil_trace,
+                                                stencil_trace_plain)
 from dealii_slod_tpu_torch.ops.eig import (_truncation_scan,
                                            jacobi_eigh_factor,
                                            smallk_truncated_dvec)
 from dealii_slod_tpu_torch.ops.patch_solve import (fused_spd_multirhs,
                                                    fused_spd_multirhs_plain,
                                                    fused_spd_multirhs_split,
+                                                   panel_spd_multirhs,
                                                    spd_inverse_schur)
 
 
@@ -74,9 +82,12 @@ class UniformTables:
     cD: int                     # coarse dofs (cells * C)
     n_int: int                  # interior canvas nodes
     nI: int                     # interior dofs (n_int * C)
-    solver_mode: str            # "fused" (K1), "fused_split" (K6 leaves)
-                                # or "lax" (per-patch Cholesky)
-    panel_nb: int               # split rule block size
+    solver_mode: str            # "fused" (K1), "fused_split" (K6 leaves),
+                                # "panel" (K2 diagonal blocks) or "lax"
+                                # (per-patch Cholesky)
+    panel_nb: int               # split rule / panel block size
+    scatter: bool               # assembly_mode "scatter": dense rows
+    trace_kernel: bool          # K3 / K7 (else the plain scan, "off")
     Hdim: float
     thr: float
     sweeps: int
@@ -92,6 +103,8 @@ class UniformTables:
     grid_rev: tuple
     sub_dims: np.ndarray
     band_tensors: dict          # name -> (2^dim, nq, 3^dim, C, C)
+    et: object                  # element tensors (the scatter assembly)
+    flat_idx: torch.Tensor      # scatter-add targets of the subcells
     coef_names: list            # sorted coefficient names (band sum order)
     center_o: int
     placement: tuple            # (P, shift, nN) of the interior grid
@@ -131,7 +144,8 @@ def uniform_tables(cfg, grid, et, sc, center_cell, device, dtype,
         dim=dim, s=s, C=C, n_nodes=sc.n_nodes_local,
         cD=sc.n_coarse_dofs_local, n_int=len(sc.interior_nodes),
         nI=len(sc.interior_nodes) * C, solver_mode=solver_mode,
-        panel_nb=cfg.panel_nb,
+        panel_nb=cfg.panel_nb, scatter=cfg.assembly_mode != "banded",
+        trace_kernel=cfg.trace_kernel in ("auto", "on"),
         Hdim=grid.H ** dim, thr=cfg.svd_threshold, sweeps=cfg.eig_sweeps,
         eig_tol=cfg.eig_tol, eig_block=eig_block,
         slod=bool(cfg.lod_stabilization and cfg.oversampling > 0),
@@ -141,6 +155,7 @@ def uniform_tables(cfg, grid, et, sc, center_cell, device, dtype,
         smallk_weig=cfg.smallk_weig, center_cell=center_cell,
         grid_rev=_rev(node_dims), sub_dims=sc.sub_dims_local.copy(),
         band_tensors={k: tf(v) for k, v in make_band_tensors(et).items()},
+        et=et, flat_idx=ti(sc.assembly_flat_idx),
         coef_names=list(coef_names),
         center_o=int(np.nonzero((offs == 0).all(axis=1))[0][0]),
         placement=(tf(P), shift, nN),
@@ -165,17 +180,27 @@ def _inside(coords, lo, hi, strict):
 
 def prep(tab: UniformTables, coefs, nlo, nhi):
     """Assembled operators and masks for a chunk of patch windows from the
-    coefficient windows ``coefs`` (name -> (B, n_sub, nq)): ``band``
-    (B, nN, 3^dim C^2) over all canvas nodes (unmasked, the operator the
-    trace / premultiply products apply), ``A_solve`` (B, nI, nI) the
-    window-interior SPD block (row-cleared reference operator, unit
-    diagonal on masked rows, LOD.cc:537-546), ``PT_m`` (B, nI, cD) and the
-    coarse-dof validity ``cvd`` (B, cD)."""
+    coefficient windows ``coefs`` (name -> (B, n_sub, nq)): the operator
+    ``op`` that the trace and A phi apply (``apply_A``: the band (B, nN,
+    3^dim C^2) over all canvas nodes, unmasked; under
+    ``assembly_mode="scatter"`` the dense interior rows A_rows_I (B, nI,
+    nD)), ``A_solve`` (B, nI, nI) the window-interior SPD block
+    (row-cleared reference operator, unit diagonal on masked rows,
+    LOD.cc:537-546), ``PT_m`` (B, nI, cD) and the coarse-dof validity
+    ``cvd`` (B, cD)."""
     dt, C = tab.PT.dtype, tab.C
     in_sub = _inside(tab.sub_coords, nlo, nhi - 1, strict=False)
     coefs = {k: coefs[k] * in_sub[..., None].to(dt) for k in tab.coef_names}
     node_int = _inside(tab.int_coords, nlo, nhi, strict=True)
     m = node_int.to(dt)                                       # (B, n_int)
+    m_d = m.repeat_interleave(C, dim=1)                       # (B, nI)
+    cell_valid = ((tab.cell_lo[None] >= nlo[:, None])
+                  & (tab.cell_lo[None] + tab.s <= nhi[:, None])).all(-1)
+    cvd = cell_valid.to(dt).repeat_interleave(C, dim=1)       # (B, cD)
+    PT_m = tab.PT_I[None] * m_d[:, :, None] * cvd[:, None, :]
+    if tab.scatter:
+        op, A_solve = _prep_scatter(tab, coefs, m_d)
+        return op, A_solve, PT_m, cvd
     band = assemble_bands(coefs, tab.band_tensors, tab.sub_dims)
     B = band.shape[0]
     band_I = band.reshape((B,) + tab.grid_rev + (-1,))[tab.inner]
@@ -185,12 +210,24 @@ def prep(tab: UniformTables, coefs, nlo, nhi):
     eye = torch.eye(C, dtype=dt, device=band.device)
     band_s[:, :, tab.center_o] += eye * (1.0 - m)[:, :, None, None]
     A_solve = bands_to_dense_mm(band_s, *tab.placement)
-    cell_valid = ((tab.cell_lo[None] >= nlo[:, None])
-                  & (tab.cell_lo[None] + tab.s <= nhi[:, None])).all(-1)
-    cvd = cell_valid.to(dt).repeat_interleave(C, dim=1)       # (B, cD)
-    m_d = m.repeat_interleave(C, dim=1)                       # (B, nI)
-    PT_m = tab.PT_I[None] * m_d[:, :, None] * cvd[:, None, :]
     return band, A_solve, PT_m, cvd
+
+
+def _prep_scatter(tab: UniformTables, coefs, m_d):
+    """The scatter assembly's operators (``assembly_mode="scatter"``): the
+    subcell matrices scatter-added into the dense canvas stiffness, its
+    interior rows A_rows_I (B, nI, nD) and the masked interior block
+    A_solve (B, nI, nI)."""
+    Ksub = make_subcell_matrices(tab.et, coefs)
+    B, nD = Ksub.shape[0], tab.n_nodes * tab.C
+    A = assemble_dense_batch(Ksub, tab.flat_idx, nD)
+    rows = A.reshape((B,) + tab.grid_rev + (tab.C, nD))[tab.inner]
+    rows = rows.reshape(B, tab.nI, nD)
+    A_II = rows.reshape((B, tab.nI) + tab.grid_rev + (tab.C,))[
+        (slice(None),) + tab.inner].reshape(B, tab.nI, tab.nI)
+    A_solve = (A_II * m_d[:, :, None] * m_d[:, None, :]
+               + torch.diag_embed(1.0 - m_d))
+    return rows, A_solve
 
 
 def edge_masks(tab: UniformTables, nlo, nhi, sides):
@@ -216,7 +253,9 @@ def scatter_interior(tab: UniformTables, v):
 
 
 def stencil_apply(tab: UniformTables, band, X_int):
-    """Y = A[:, interior] @ X through the nodal stencil (K3 / K7): band
+    """Y = A[:, interior] @ X through the nodal stencil (K3 / K7; under
+    ``trace_kernel="off"`` their plain version, the scan of ordinary
+    tensor ops that JAX runs in XLA, one accumulator per component): band
     (B, nN, 3^dim C^2), X (B, nI, k) -> (B, nD, k).  The dofs go to the
     trace's (B, C, nN, k) layout and back.  Wrap-around flat positions read
     the zero padding or carry zero band weight."""
@@ -224,9 +263,20 @@ def stencil_apply(tab: UniformTables, band, X_int):
     C, nN = tab.C, tab.n_nodes
     Xz = scatter_interior(tab, X_int).reshape(B, nN, C, k).transpose(1, 2)
     Xp = F.pad(Xz, (0, 0, tab.shiftN, tab.shiftN))
-    S = stencil_trace(band.contiguous(), Xp.contiguous(), tab.shiftN,
-                      tab.offs_flat)                          # (B, C, nN, k)
+    trace = stencil_trace if tab.trace_kernel else stencil_trace_plain
+    S = trace(band.contiguous(), Xp.contiguous(), tab.shiftN,
+              tab.offs_flat)                                  # (B, C, nN, k)
     return S.transpose(1, 2).reshape(B, nN * C, k)
+
+
+def apply_A(tab: UniformTables, op, X_int):
+    """Y = A[:, interior] @ X (B, nI, k) -> (B, nD, k) with the operator
+    ``prep`` returned: the band through ``stencil_apply``, or the dense
+    interior rows A_rows_I contracted (their transpose is A[:, interior]
+    by symmetry; ``assembly_mode="scatter"``)."""
+    if tab.scatter:
+        return torch.einsum("bin,bik->bnk", op, X_int)
+    return stencil_apply(tab, op, X_int)
 
 
 def trace_S_chunk(tab: UniformTables, band, X, nlo, nhi, sides):
@@ -234,7 +284,7 @@ def trace_S_chunk(tab: UniformTables, band, X, nlo, nhi, sides):
     LOD.cc:520-528) -> (S99 (B, nD, k), is99d (B, nD))."""
     _, is99 = edge_masks(tab, nlo, nhi, sides)
     is99d = is99.to(X.dtype).repeat_interleave(tab.C, dim=1)
-    return stencil_apply(tab, band, X) * is99d[:, :, None], is99d
+    return apply_A(tab, band, X) * is99d[:, :, None], is99d
 
 
 def _center_masks(tab: UniformTables, cvd):
@@ -289,7 +339,7 @@ def finish_post_dvec(tab: UniformTables, band, Ainv_PT, Tinv, dvec, cvd,
     phi_int = phi_int / torch.sqrt((phi_int ** 2).sum(1, keepdim=True))
     phi = scatter_interior(tab, phi_int)
     # A_semi phi == A[:, interior] phi_int with domain-boundary rows zeroed
-    Aphi = stencil_apply(tab, band, phi_int)
+    Aphi = apply_A(tab, band, phi_int)
     isdom_d = isdom.repeat_interleave(tab.C, dim=1)
     Aphi = torch.where(isdom_d[:, :, None], 0.0, Aphi)
     B, C = phi.shape[0], tab.C
@@ -299,10 +349,13 @@ def finish_post_dvec(tab: UniformTables, band, Ainv_PT, Tinv, dvec, cvd,
 
 def patch_solve(tab: UniformTables, A_solve, PT_m):
     """(X = A^-1 PT, T = PT^T X) by K1 (``"fused"``), by the Schur split
-    with K6 leaves (``"fused_split"``) or by a per-patch Cholesky solve
+    with K6 leaves (``"fused_split"``), by the panel LDL^T with K2 on its
+    diagonal blocks (``"panel"``) or by a per-patch Cholesky solve
     (``"lax"``: XLA's Cholesky in the reference, the library's here)."""
     if tab.solver_mode == "fused_split":
         return fused_spd_multirhs_split(A_solve, PT_m, nb=tab.panel_nb)
+    if tab.solver_mode == "panel":
+        return panel_spd_multirhs(A_solve, PT_m, nb=tab.panel_nb)
     if tab.solver_mode == "lax":
         return fused_spd_multirhs_plain(A_solve, PT_m)
     return fused_spd_multirhs(A_solve, PT_m)

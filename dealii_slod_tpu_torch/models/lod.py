@@ -6,12 +6,17 @@ comparison solves, the error tables, VTU output and ``run()``.
 The tables are tensors on the ``device`` given to the constructor, the
 card unless the caller asks for the CPU.  The ported routes are 3D / 2D
 scalar diffusion (C = 1) and linear elasticity (C = dim), plain LOD or
-SLOD, with the fused patch solver, its 2x2 Schur split or the per-patch
-Cholesky solve (``patch_solver="auto"`` picks by the reference's size
-rule) and the smallk, Jacobi or ``eigh`` spectral stage
+SLOD, with the fused patch solver, its 2x2 Schur split, the panel LDL^T
+or the per-patch Cholesky solve (``patch_solver="auto"`` picks by the
+reference's size rule), the smallk, Jacobi or ``eigh`` spectral stage
 (``eig_solver="auto"``: smallk on the card in float32, ``eigh`` ("lapack")
-elsewhere); every other knob value raises ``NotImplementedError`` naming
-its ROADMAP.md entry."""
+elsewhere), the banded or the scatter assembly, the trace kernel or its
+scan, the coarse CG or the direct coarse solve; ``kernel_mode="classes"``
+builds the basis per patch shape class (``models/classes.py``), and on a
+constant field the uniform route builds one patch per window signature.
+The coefficient sets other than diffusion's and elasticity's and the
+sharded step raise ``NotImplementedError`` naming their ROADMAP.md
+entry."""
 
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from dealii_slod_tpu_torch.grid import (GridSpec, PatchTopology,
                                         ShapeClass, cartesian_coords,
                                         clipped_window_index,
                                         global_connectivity, ravel)
-from dealii_slod_tpu_torch.models import basis, stencil
+from dealii_slod_tpu_torch.models import basis, classes, stencil
 from dealii_slod_tpu_torch.ops import element
 from dealii_slod_tpu_torch.ops.assembly import (FineOperator,
                                                 assemble_load_vector,
@@ -40,7 +45,6 @@ from dealii_slod_tpu_torch.utils.errors import ConvergenceTable, host_array
 from dealii_slod_tpu_torch.utils.timers import StageTimer
 
 # the ROADMAP.md Queue 1 entries that the refusals below name, by title
-ROUTES = "the remaining basis and coarse routes"
 REACTION = "reaction-diffusion and the device sampler"
 SCALING = "scaling axes"
 
@@ -100,7 +104,8 @@ def patch_solver_mode(cfg: SLODConfig, C: int, sc: ShapeClass) -> str:
     per-patch Cholesky solve).  The rule only picks the structure the
     reference's accelerator path runs; the card has no such limits.  A
     named solver other than "fused", "fused_split" and "panel" is "lax",
-    as in the reference."""
+    as in the reference ("panel": ``ops/patch_solve.py:
+    panel_spd_multirhs``)."""
     mode = cfg.patch_solver
     if mode != "auto":
         return mode if mode in ("fused", "fused_split", "panel") else "lax"
@@ -117,35 +122,28 @@ def patch_solver_mode(cfg: SLODConfig, C: int, sc: ShapeClass) -> str:
 
 
 def check_supported(cfg: SLODConfig, problem, device: torch.device) -> None:
-    """Refuse every knob value the port does not implement."""
+    """Refuse what the port does not implement; warn on the TPU variants
+    of a kernel's contract (K9), which run on that contract's kernel."""
     C = problem.n_components
     if C not in (1, cfg.dim):
         raise NotImplementedError(f"C = {C} components in {cfg.dim}D: the "
                                   "reference's problems have C = 1 or dim")
-    if cfg.kernel_mode != "uniform":
-        _not_ported(f"kernel_mode={cfg.kernel_mode!r}", ROUTES)
-    if cfg.patch_solver == "panel":
-        _not_ported("patch_solver='panel'", ROUTES)
-    if cfg.fused_nb != 64:
-        _not_ported(f"fused_nb={cfg.fused_nb} (the kernel's panel is 64)",
-                    ROUTES)
-    if cfg.trace_kernel == "off":
-        _not_ported("trace_kernel='off' (the per-patch scan route)", ROUTES)
-    if cfg.assembly_mode != "banded":
-        _not_ported(f"assembly_mode={cfg.assembly_mode!r}", ROUTES)
-    if cfg.coarse_solve != "cg":
-        _not_ported(f"coarse_solve={cfg.coarse_solve!r}", ROUTES)
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype {cfg.dtype!r}")
     if (cfg.fused_algo != "ldl" or cfg.fused_block != 4 or cfg.solver_gj2
-            or cfg.split_bs != 4):
-        # TPU VMEM-placement / batching / issue-order variants of K1's,
-        # K6's and K2's contracts (K9)
+            or cfg.split_bs != 4 or cfg.fused_nb != 64
+            or cfg.panel_gj_bs != 16):
+        # TPU VMEM-placement / batching / tiling / issue-order variants of
+        # K1's, K6's and K2's contracts (K9)
         warnings.warn(
             f"fused_algo={cfg.fused_algo!r}, fused_block={cfg.fused_block},"
-            f" solver_gj2={cfg.solver_gj2}, split_bs={cfg.split_bs} are TPU "
-            "variants of the patch solve; the CUDA kernels K1, K6 and K2 "
-            "serve them all", stacklevel=3)
+            f" fused_nb={cfg.fused_nb}, solver_gj2={cfg.solver_gj2}, "
+            f"split_bs={cfg.split_bs}, panel_gj_bs={cfg.panel_gj_bs} are "
+            "TPU variants of the patch solve; the CUDA kernels K1 (its "
+            "panel is 64), K6 and K2 serve them all", stacklevel=3)
+    if cfg.solver_gj2 and cfg.patch_solver == "panel":
+        warnings.warn("solver_gj2=True has no effect with patch_solver="
+                      "'panel' (scalar GJ pivot inverses run)", stacklevel=3)
     if cfg.matmul_precision not in ("high", "highest"):
         # JAX's bf16 passes; the port's float32 GEMMs are full float32 and
         # K1 / K6 multiply in 3xTF32, which serves "high" and "highest"
@@ -235,13 +233,12 @@ class LODSolver:
 
         self.canvas_class = ShapeClass((2 * ell + 1,) * cfg.dim, self.grid)
         self.solver_mode = patch_solver_mode(cfg, C, self.canvas_class)
-        if self.solver_mode == "fused_split" and cfg.panel_nb % 64:
-            _not_ported(f"panel_nb={cfg.panel_nb} (the split's leaf kernel "
-                        "K6 tiles by 64)", ROUTES)
         self.canvas_center_cell = int(ravel(np.full(cfg.dim, ell),
                                             np.full(cfg.dim, 2 * ell + 1)))
         self._tables = None
         self._inputs = None
+        self._dedup = None
+        self._class_tables = {}
         self._stencil_tables = None
         self._placement = None
 
@@ -328,27 +325,75 @@ class LODSolver:
                 self._t(sides, torch.bool))
         return self._inputs
 
+    def _patch_dedup(self, nlo, nhi, sides):
+        """On a constant coefficient field the basis depends only on the
+        window geometry and the domain-side flags: the unique (nlo, nhi,
+        sides) rows (``np.unique``, as the reference's ``_patch_dedup``)
+        -> (representative patch of each, inverse index (P,)), or None
+        when the field is not constant."""
+        if not self.problem.is_constant():
+            return None
+        key = np.concatenate([nlo, nhi, sides.astype(nlo.dtype)], axis=1)
+        _, rep, inv = np.unique(key, axis=0, return_index=True,
+                                return_inverse=True)
+        return rep, inv.reshape(-1)
+
+    def _dedup_inputs_t(self):
+        """The uniform inputs of the unique window signatures as device
+        tensors, with the inverse index; None without dedup (built once)."""
+        if self._dedup is None:
+            gsub, nlo, nhi, sides = self._uniform_inputs()
+            dedup = self._patch_dedup(nlo, nhi, sides)
+            self._dedup = False
+            if dedup is not None:
+                rep, inv = dedup
+                self._dedup = (self._t(gsub[rep], torch.int64),
+                               self._t(nlo[rep], torch.int64),
+                               self._t(nhi[rep], torch.int64),
+                               self._t(sides[rep], torch.bool),
+                               self._t(inv, torch.int64))
+        return self._dedup or None
+
     @_full_f32
     def compute_basis(self, coefs=None):
         """Basis canvases ``self.Phi`` / ``self.APhi`` (P, canvas_n, C, C),
-        chunk by chunk (``cfg.patch_chunk`` patches; 0 = all at once)."""
+        chunk by chunk (``cfg.patch_chunk`` patches; 0 = all at once).
+
+        Without ``coefs`` (the solver's own field) a constant field builds
+        only the unique window signatures and gathers them back with one
+        index (the coefficient windows are off then, as in the
+        reference); fields passed in (``build_step``) are never deduped.
+        ``self.basis_patches`` is the number of patches built."""
+        if self.cfg.kernel_mode != "uniform":
+            Phi, APhi = classes.compute_basis(
+                self, self.coef_q if coefs is None else coefs)
+            self.Phi, self.APhi = Phi, APhi
+            self.basis_patches = self.topo.n_patches
+            return Phi, APhi
+        dedup = self._dedup_inputs_t() if coefs is None else None
         coefs = self.coef_q if coefs is None else coefs
         tab = self._uniform_tables()
-        gsub, nlo_t, nhi_t, sides_t = self._uniform_inputs_t()
+        if dedup is None:
+            gsub, nlo_t, nhi_t, sides_t = self._uniform_inputs_t()
+        else:
+            gsub, nlo_t, nhi_t, sides_t, inv = dedup
         cw = {k: (basis.coef_windows(self.cfg, self.grid, coefs[k])
                   if gsub is None else coefs[k][gsub])
               for k in self.coef_names}
-        P, C = self.topo.n_patches, self.C
-        Phi = torch.empty((P, self.canvas_n, C, C), dtype=self.dtype,
+        B, C = len(nlo_t), self.C
+        Phi = torch.empty((B, self.canvas_n, C, C), dtype=self.dtype,
                           device=self.device)
         APhi = torch.empty_like(Phi)
-        step = self.cfg.patch_chunk or P
-        for lo in range(0, P, step):
-            hi = min(P, lo + step)
+        step = self.cfg.patch_chunk or B
+        for lo in range(0, B, step):
+            hi = min(B, lo + step)
             Phi[lo:hi], APhi[lo:hi] = basis.uniform_chunk(
                 tab, {k: v[lo:hi] for k, v in cw.items()}, nlo_t[lo:hi],
                 nhi_t[lo:hi], sides_t[lo:hi])
+        if dedup is not None:
+            Phi, APhi = Phi[inv], APhi[inv]
         self.Phi, self.APhi = Phi, APhi
+        self.basis_patches = B
         return Phi, APhi
 
     def _stencil_build(self, Phi, APhi):
@@ -389,22 +434,53 @@ class LODSolver:
                   max_steps=rc.max_steps, tolerance=rc.tolerance,
                   reduce=rc.reduce, precond=lambda r: r / diag)
 
+    def _use_direct_coarse(self) -> bool:
+        """``coarse_solve="direct"`` applies up to ``coarse_dense_cap``
+        coarse dofs; CG, the reference's own solver, beyond."""
+        return (self.cfg.coarse_solve == "direct"
+                and self.topo.n_patches * self.C <= self.cfg.coarse_dense_cap)
+
+    @_full_f32
+    def _coarse_direct_fn(self, A_st):
+        """rhs (P, C) -> A_LOD^-1 rhs by one dense Cholesky factor of the
+        coarse matrix, made here once, and two triangular solves a call."""
+        L = torch.linalg.cholesky(self.coarse_dense_matrix(A_st))
+
+        def solve(rhs):
+            return cholesky_solve(L, rhs.reshape(-1, 1)).reshape(rhs.shape)
+
+        return solve
+
+    def _solve_coarse_system(self, A_st, rhs_c):
+        """The coarse solution and the CG result (None on the direct
+        route)."""
+        if self._use_direct_coarse():
+            return self._coarse_direct_fn(A_st)(rhs_c), None
+        res = self._coarse_cg(A_st, rhs_c)
+        return res.x, res
+
     def _coarse_rhs(self, Phi, fem_rhs):
-        f_at = basis.rhs_windows(self.cfg, self.grid, fem_rhs)
+        """C^T f: the rhs's canvas windows (zero outside the domain), or
+        on the classes route the clipped gather ``fem_rhs[canvas_gidx]``
+        as the reference's; the canvases vanish where the two differ."""
+        if self.cfg.kernel_mode == "uniform":
+            f_at = basis.rhs_windows(self.cfg, self.grid, fem_rhs)
+        else:
+            f_at = fem_rhs[self.canvas_gidx]
         return torch.einsum("pncd,pnc->pd", Phi, f_at)
 
     @_full_f32
     def solve_coarse(self):
         """Coarse LOD solve (reference LOD.cc:976-1002): rhs = C^T f, then
-        CG with Jacobi on the coarse operator."""
+        CG with Jacobi on the coarse operator, or the direct solve
+        (``coarse_solve="direct"`` below the cap; ``coarse_cg`` None)."""
         rhs_c = self._coarse_rhs(self.Phi, self.fem_rhs)
         self.coarse_rhs = rhs_c
         self.log(f"     rhs l2 norm = {float(torch.linalg.norm(rhs_c)):.6g}")
-        res = self._coarse_cg(self.A_stencil, rhs_c)
-        self.coarse_solution = res.x
-        self.coarse_cg = res
-        self.log(f"   size of u {res.x.numel()}")
-        return res.x
+        x, self.coarse_cg = self._solve_coarse_system(self.A_stencil, rhs_c)
+        self.coarse_solution = x
+        self.log(f"   size of u {x.numel()}")
+        return x
 
     @_full_f32
     def prolong_lod_solution(self):
@@ -742,10 +818,10 @@ class LODSolver:
             step(coefs: {name: (n_fine_cells, nq)}, fem_rhs: (n_nodes, C))
                 -> (coarse solution (P, C), A_stencil (P, S, C, C))
 
-        covering basis construction -> coarse-operator assembly -> CG.
-        The step also leaves ``Phi``, ``APhi``, ``A_stencil``,
-        ``coarse_solution`` and ``coarse_cg`` on the solver, so that
-        ``prolong_lod_solution`` can follow it.  On the card the step, as
+        covering basis construction -> coarse-operator assembly -> CG (or
+        the direct coarse solve).  The step also leaves ``Phi``, ``APhi``,
+        ``A_stencil``, ``coarse_solution`` and ``coarse_cg`` on the solver,
+        so that ``prolong_lod_solution`` can follow it.  On the card the step, as
         every public stage, runs under ``full_f32_matmuls``."""
         if mesh is not None:
             _not_ported("build_step(mesh=...) (patch-axis sharding)",
@@ -756,6 +832,7 @@ class LODSolver:
     def _step(self, coefs, fem_rhs):
         Phi, _ = self.compute_basis(coefs)
         A_st = self.assemble_coarse_operator()
-        res = self._coarse_cg(A_st, self._coarse_rhs(Phi, fem_rhs))
-        self.coarse_solution, self.coarse_cg = res.x, res
-        return res.x, A_st
+        x, res = self._solve_coarse_system(A_st,
+                                           self._coarse_rhs(Phi, fem_rhs))
+        self.coarse_solution, self.coarse_cg = x, res
+        return x, A_st

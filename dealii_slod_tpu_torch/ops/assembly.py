@@ -1,6 +1,6 @@
-"""Banded Q_iso_Q1 assembly, the global load vector / fine operator, and
-kernels K3 / K7, the stencil trace (counterpart of ``dealii_slod_tpu/ops/
-assembly.py``).
+"""Banded Q_iso_Q1 assembly, the dense scatter assembly, the global load
+vector / fine operator, and kernels K3 / K7, the stencil trace
+(counterpart of ``dealii_slod_tpu/ops/assembly.py``).
 
 On the uniform subcell grid the patch stiffness is a 3^dim-point nodal
 stencil of C x C blocks: ``band[i, o, c, d] = sum_{name, r, q}
@@ -219,6 +219,20 @@ def make_subcell_matrices(et: ElementTensors,
                             t(et.K_grad))
     return (torch.einsum("...sq,qIJ->...sIJ", coefs["mu"], t(et.K_mu))
             + torch.einsum("...sq,qIJ->...sIJ", coefs["lam"], t(et.K_lam)))
+
+
+def assemble_dense_batch(Ksub: torch.Tensor, flat_idx: torch.Tensor,
+                         n_dofs: int) -> torch.Tensor:
+    """Scatter-add each patch's subcell matrices (B, n_sub, mD, mD) into a
+    dense (B, n_dofs, n_dofs) patch stiffness, unconstrained (reference
+    ``assemble_dense`` / ``assemble_dense_batch``, LOD.cc:440-444);
+    ``flat_idx`` holds the static row * n_dofs + col of every entry
+    (``ShapeClass.assembly_flat_idx``).  On CUDA ``index_add_`` adds in no
+    fixed order: the sums agree to rounding."""
+    B = Ksub.shape[0]
+    A = Ksub.new_zeros((B, n_dofs * n_dofs))
+    A.index_add_(1, flat_idx, Ksub.reshape(B, -1))
+    return A.reshape(B, n_dofs, n_dofs)
 
 
 class FineOperator:

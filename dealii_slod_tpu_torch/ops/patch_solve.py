@@ -1,8 +1,9 @@
 """Batched SPD patch solves: kernel K1 (fused block-LDL^T multi-RHS solve
 with the triple product), kernel K6 (its solve-only instance, the leaf of
-the 2x2 Schur split that the elasticity patch solve takes) and kernel K2
-(Gauss-Jordan sweep inverse, and the blocked sweep built on it)
-(counterpart of ``dealii_slod_tpu/ops/patch_solve.py``).
+the 2x2 Schur split that the elasticity patch solve takes), kernel K2
+(Gauss-Jordan sweep inverse, the blocked sweep built on it) and the panel
+LDL^T whose diagonal blocks K2 inverts (counterpart of
+``dealii_slod_tpu/ops/patch_solve.py``).
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its CUDA kernel (``csrc/patch_solve.cu``) for a CUDA tensor."""
@@ -319,3 +320,54 @@ def spd_inverse_schur(M: torch.Tensor, nb: int = GJ_PAD) -> torch.Tensor:
         M2[:, k0:k1, k0:k1] = -Pi
         M = M2
     return -M[:, :n0, :n0]
+
+
+# ---------------------------------------------------------------------------
+# The panel route: block LDL^T by batched products, K2 on the diagonal
+# ---------------------------------------------------------------------------
+
+def panel_spd_multirhs(A: torch.Tensor, B: torch.Tensor, nb: int = 128):
+    """K1's contract by a right-looking block LDL^T at the level of batched
+    products (counterpart of ``panel_spd_multirhs``): A (P, n, n) SPD, B
+    (P, n, k) -> (X = A^-1 B, T = 0.5 (B^T X + (B^T X)^T)).
+
+    A is identity-extended to a multiple of ``nb``.  Each panel step
+    inverts its nb x nb diagonal block on K2 (``gj_inverse``; beyond 128
+    the blocked sweep ``spd_inverse_schur``, K2 on 128-pivots, where the
+    reference's scalar sweep pads any nb), then scales the panel and
+    updates the trailing block by one batched product each over the whole
+    batch.  The forward, block-diagonal and backward solves and T are
+    batched products too."""
+    P, n0, _ = A.shape
+    k = B.shape[-1]
+    n = -(-n0 // nb) * nb
+    W = _pad_spd(A, n)                     # a copy: factored in place
+    Z = B.new_zeros((P, n, k))
+    Z[:, :n0] = B
+    inv = gj_inverse if nb <= GJ_PAD else spd_inverse_schur
+    Ls, Dinvs = [], []
+    for j0 in range(0, n, nb):
+        j1 = j0 + nb
+        Dinvs.append(inv(W[:, j0:j1, j0:j1]))
+        if j1 < n:
+            Wj = W[:, j1:, j0:j1]
+            Ls.append(Wj @ Dinvs[-1])
+            W[:, j1:, j1:] -= Ls[-1] @ Wj.mT
+    del W
+    for j, Lj in enumerate(Ls):            # L z = B
+        Z[:, (j + 1) * nb:] -= Lj @ Z[:, j * nb:(j + 1) * nb]
+    X = (torch.stack(Dinvs, dim=1) @ Z.reshape(P, n // nb, nb, k)).reshape(
+        P, n, k)                           # w = D^-1 z
+    for j in range(len(Ls) - 1, -1, -1):   # L^T x = w
+        X[:, j * nb:(j + 1) * nb] -= Ls[j].mT @ X[:, (j + 1) * nb:]
+    X = X[:, :n0]
+    T = B.mT @ X
+    return X, 0.5 * (T + T.mT)
+
+
+def panel_k2_launches(n0: int, nb: int) -> int:
+    """K2 launches of one ``panel_spd_multirhs`` call on an (n0, n0)
+    block: one per diagonal block, or one per 128-pivot of each block
+    where nb > 128."""
+    per_block = 1 if nb <= GJ_PAD else -(-nb // GJ_PAD)
+    return -(-n0 // nb) * per_block

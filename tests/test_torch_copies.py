@@ -1,6 +1,7 @@
 """The port keeps its own copies of the JAX package's host-side modules
-(``config``, ``grid``, ``ops/element``, ``models/coefficients``): this
-guard holds each copy equal to its original on 2D and 3D configurations,
+(``config``, ``grid``, ``ops/element``, ``models/coefficients``,
+``utils/io``, ``utils/native`` and ``utils/checkpoint.py``'s fingerprint):
+this guard holds each copy equal to its original on 2D and 3D configurations,
 so that a change to one side that is not made to the other shows here."""
 
 import dataclasses
@@ -128,3 +129,24 @@ def test_utils_copies_match(module):
     if module == "native":
         assert mine._LIB_PATH == ref._LIB_PATH
 
+
+
+@pytest.mark.parametrize("kw", [{}, dict(dim=3, oversampling=2,
+                                         lod_stabilization=True),
+                                dict(coef_seed=7, dtype="float32",
+                                     eig_solver="smallk")],
+                         ids=["default", "3d-slod", "f32-smallk"])
+def test_checkpoint_fingerprint_copy_matches(kw):
+    """``utils/checkpoint.py: _config_fingerprint``, the one function the
+    port copies from that module: the same source, and the same
+    fingerprint of the same configuration (so basis files move between
+    the packages)."""
+    import inspect
+    from dealii_slod_tpu.utils import checkpoint as jax_checkpoint
+    from dealii_slod_tpu_torch.utils import checkpoint
+    assert inspect.getsource(checkpoint._config_fingerprint) == \
+        inspect.getsource(jax_checkpoint._config_fingerprint)
+    for C in (1, kw.get("dim", 2)):
+        assert checkpoint._config_fingerprint(config.SLODConfig(**kw), C) \
+            == jax_checkpoint._config_fingerprint(
+                jax_config.SLODConfig(**kw), C)

@@ -1,8 +1,8 @@
 """The port's package boundary: it never loads jax or the JAX package,
 it runs on the card unless asked for the CPU and refuses a CUDA device that
-is not there, it resolves the "auto" knobs by the reference's rules, and it
-refuses every knob value it does not implement, naming its ROADMAP.md
-entry by title."""
+is not there, it resolves the "auto" knobs by the reference's rules, every
+knob value of the basis and coarse routes builds and steps, and what it
+does not implement raises, naming its ROADMAP.md entry by title."""
 
 import os
 import re
@@ -70,6 +70,9 @@ def test_import_and_cpu_step_never_load_jax():
         assert bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0
         # the reference's default run and the modules it reaches
         import dealii_slod_tpu_torch.cli
+        import dealii_slod_tpu_torch.examples.convergence_study
+        import dealii_slod_tpu_torch.examples.multi_rhs
+        import dealii_slod_tpu_torch.utils.checkpoint
         import dealii_slod_tpu_torch.utils.errors
         import dealii_slod_tpu_torch.utils.io
         import dealii_slod_tpu_torch.utils.native
@@ -167,11 +170,21 @@ class _Elasticity:
     n_components = 3           # C = 3 components in 2D
 
 
-UNSUPPORTED = [
-    dict(patch_solver="panel"), dict(kernel_mode="classes"),
-    dict(coarse_solve="direct"), dict(trace_kernel="off"),
-    dict(fused_nb=128), dict(assembly_mode="scatter"),
-    dict(problem="elasticity", patch_solver="fused_split", panel_nb=96),
+# each knob value of the basis and coarse routes -> (the default-route
+# knobs it is compared with, what is compared, bound): "rel" the relative
+# max difference of Phi, "abs" the absolute one (the classes route's SVD
+# against the uniform route's eigh stage, tests/test_uniform.py's bound)
+TIGHT = pt.ReductionControl(800, 1e-12, 1e-12)
+ROUTE_KNOBS = [
+    (dict(patch_solver="panel"), {}, "rel", 1e-10),
+    (dict(kernel_mode="classes"), dict(eig_solver="lapack"), "abs", 3e-7),
+    (dict(coarse_solve="direct", coarse_solver=TIGHT),
+     dict(coarse_solver=TIGHT), "rel", 0.0),
+    (dict(trace_kernel="off"), {}, "rel", 1e-10),
+    (dict(fused_nb=128), {}, "rel", 0.0),
+    (dict(assembly_mode="scatter"), {}, "rel", 1e-10),
+    (dict(problem="elasticity", patch_solver="fused_split", panel_nb=96),
+     dict(problem="elasticity", patch_solver="fused_split"), "rel", 1e-10),
 ]
 
 
@@ -179,34 +192,55 @@ def _ids(k):
     return "-".join(f"{a}={b}" for a, b in k.items())
 
 
+def _tiny_solver(knobs):
+    knobs = dict(knobs)
+    elastic = knobs.pop("problem", None) == "elasticity"
+    if elastic:
+        knobs.setdefault("rhs", "1; 1")
+    cfg = tiny_cfg(**knobs)
+    problem = (pt.ElasticityProblem if elastic else pt.DiffusionProblem)(cfg)
+    return pt.LODSolver(cfg, problem, device="cpu", verbose=False)
+
+
+@pytest.mark.filterwarnings("ignore:fused_algo")
+@pytest.mark.parametrize("knobs, base, how, bound", ROUTE_KNOBS,
+                         ids=[_ids({a: b for a, b in k[0].items()
+                                    if a != "coarse_solver"})
+                              for k in ROUTE_KNOBS])
+def test_route_knobs_build_and_match_the_default(knobs, base, how, bound):
+    """Each knob value of the remaining basis and coarse routes builds a
+    tiny solver on the CPU and steps, and its Phi is the default route's
+    within the route's bound (the direct coarse solve and fused_nb, a TPU
+    tiling of K1, leave the basis as it is); the direct solve's u is the
+    CG's."""
+    s, d = _tiny_solver(knobs), _tiny_solver(base)
+    out = []
+    for solver in (s, d):
+        solver.assemble_fine_rhs()
+        out.append(solver.build_step()(solver.coef_q, solver.fem_rhs)[0])
+    diff = float((s.Phi - d.Phi).abs().max())
+    if how == "rel":
+        diff /= float(d.Phi.abs().max())
+    assert diff <= bound, (knobs, diff)
+    assert bool(torch.isfinite(out[0]).all())
+    if "coarse_solve" in knobs:
+        assert s.coarse_cg is None and d.coarse_cg is not None
+        assert torch.allclose(out[0], out[1], rtol=1e-6, atol=1e-12)
+
+
 def _refusal(knobs):
     """The NotImplementedError that building a solver with ``knobs``
     raises."""
-    knobs = dict(knobs)
-    elastic = knobs.pop("problem", None) == "elasticity"
     cfg = tiny_cfg(**knobs)
-    if not elastic:
-        problem = pt.DiffusionProblem(cfg)
-    elif "panel_nb" in knobs:          # the split's rule block vs K6's tile
-        problem = pt.ElasticityProblem(cfg)
-    else:
-        problem = _Elasticity()
     with pytest.raises(NotImplementedError) as info:
-        pt.LODSolver(cfg, problem, device="cpu", verbose=False)
+        pt.LODSolver(cfg, _Elasticity(), device="cpu", verbose=False)
     return str(info.value)
 
 
-@pytest.mark.parametrize("knobs", UNSUPPORTED + [dict(problem="elasticity")],
-                         ids=_ids)
-def test_unsupported_knobs_raise(knobs):
-    """Every knob value the port does not implement raises, naming its
-    ROADMAP.md entry; C = 3 components in 2D, which no problem of the
-    reference has, raises saying so."""
-    msg = _refusal(knobs)
-    if knobs == dict(problem="elasticity"):
-        assert "C = 1 or dim" in msg
-    else:
-        assert "ROADMAP.md Queue 1: " in msg
+def test_unsupported_knobs_raise():
+    """C = 3 components in 2D, which no problem of the reference has,
+    raises saying so."""
+    assert "C = 1 or dim" in _refusal({})
 
 
 def _queue1_text():
@@ -218,11 +252,11 @@ def _queue1_text():
 def test_refusals_name_a_queue1_title():
     """Each refusal names a Queue 1 entry of ROADMAP.md by its title (a
     bold item heading there), so renumbering the queue cannot break it:
-    the knob refusals, the coefficient sets, the sharded step and the
-    CLI's reaction problem."""
+    the coefficient sets, the sharded step and the CLI's reaction problem
+    (which raises as the coefficient sets do)."""
     from dealii_slod_tpu_torch.models import lod
     from dealii_slod_tpu_torch.ops.assembly import FineOperator
-    msgs = [_refusal(k) for k in UNSUPPORTED]
+    msgs = []
     s = pt.LODSolver(tiny_cfg(), pt.DiffusionProblem(tiny_cfg()),
                      device="cpu", verbose=False)
     for call in (lambda: s.build_step(mesh=object()),
@@ -235,7 +269,7 @@ def test_refusals_name_a_queue1_title():
     headings = [h.lower() for h in
                 re.findall(r"^\d+\. \*\*(.+?)\.?\*\*", _queue1_text(),
                            re.M)]
-    titles = {lod.ROUTES, lod.REACTION, lod.SCALING}
+    titles = {lod.REACTION, lod.SCALING}
     for msg in msgs:
         title = re.search(r"ROADMAP\.md Queue 1: ([^)]+)\)", msg).group(1)
         assert title in titles, msg
