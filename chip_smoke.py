@@ -125,7 +125,31 @@ Phases (each prints its numbers; any failure exits non-zero):
    a basis checkpoint saved and loaded on the card; the scatter assembly
    and ``trace_kernel="off"`` (no K3) against the default route at
    refine-3 float64; and the examples ``convergence_study
-   --refinements 3 4 5`` and ``multi_rhs`` on the card.
+   --refinements 3 4 5`` and ``multi_rhs`` on the card;
+12. reaction: ``ReactionDiffusionProblem`` with c = 1 + x (a mass term
+   that varies in space: no dedup, no stiffness cache) on the main
+   configuration: the step in float32 (one first call, 2 timed; the main
+   path's launches, K1 32, K2 64, K3 64, K4 96, K5 32) and float64
+   (prolonged fields within 1e-2), K1's and K3's float32 gates on every
+   chunk, K1 and K3 against their plain versions on the first chunk's
+   reaction operator (rows of the kernel table), the float64 3D refine-2
+   l=1 step on the CPU against the card (1e-8), ``run()`` of the
+   manufactured problem of ``tests/test_reaction.py`` (2D refine-3 l=2,
+   float64) against the same run on the CPU (tables to 1e-10 of
+   max(|value|, 1), the LOD field to 1e-10), and the CLI's ``reaction``
+   into a temporary directory;
+13. monte-carlo: the Monte-Carlo example at the JAX script's accelerator
+   configuration (3D refine-4, 4096 patches, 32 samples, coefficient
+   refinement 4, contrast 1e2, float32, the script's one chunk of all
+   patches) with lognormal fields drawn on the card, then 8 samples of
+   the host's random field: first call, per-sample walls, samples/s,
+   peak memory, QoI spread and (samples + 1) steps' launches; the
+   sampler's log-statistics, its seed and the same noise's field on the
+   CPU and the card (1e-12); ``sweep_step`` on 4 of the samples (their
+   QoIs as the example's lone steps) and, in float64 at refine-3,
+   against lone steps (1e-10); K1's and K3's float32 gates on every chunk
+   of a lognormal sample, of the channel field (2D refine-6) and of the
+   random field at coef_max = 1e4.
 
 Every path counts its kernel launches from 0, set just before its first
 call and read just after its last; each K4 row's device time per step of
@@ -148,7 +172,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "el-kernels", "e2e-f64", "jacobi",
-          "main", "weig", "elasticity", "run", "routes")
+          "main", "weig", "elasticity", "run", "routes", "reaction",
+          "monte-carlo")
 # H100 SXM: float32 outside the tensor cores, float64 on them (DMMA)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
@@ -226,7 +251,37 @@ PATH_KERNELS = {
     "routes-scatter-r3-f64": _MAIN[:2],
     "routes-off-r3-f64": _MAIN[:2],
     "routes-direct-f64": _MAIN,
+    # the reaction phase: the main route with the mass term; run() and the
+    # CLI on the eigh stage / plain LOD
+    "reaction": _MAIN,
+    "reaction-f64": _MAIN,
+    "reaction-run": _MAIN[:3],
+    "reaction-cli": _MAIN[:3],
+    # the monte-carlo phase: the example's steps and the sweep's
+    "monte-carlo": _MAIN,
+    "monte-carlo-random": _MAIN,
+    "sweep-f32": _MAIN,
 }
+# the main path's launches a step (32 chunks of 128 patches)
+MAIN_LAUNCHES = {"K1 fused_spd_multirhs": 32, "K2 gj_inverse": 64,
+                 "K3 stencil_trace": 64, "K4 mgs_qr": 96,
+                 "K5 jacobi_eigh": 32}
+# the reaction phase's coefficient c(x): varying in space, so the patch
+# dedup and the stiffness cache must not fire
+REACTION = dict(reaction="1 + x")
+# run() of tests/test_reaction.py's manufactured problem (u = sin(pi x)
+# sin(pi y), alpha = c = 1) at refine 3, l = 2, float64
+MANUFACTURED = dict(
+    dim=2, n_global_refinements=3, n_subdivisions=2, oversampling=2,
+    lod_stabilization=True, constant_coefficients=True, reaction="1",
+    rhs="(2*pi^2 + 1)*sin(pi*x)*sin(pi*y)",
+    exact_solution="sin(pi*x)*sin(pi*y)", bc="0", dtype="float64",
+    solve_fine_problem=True, write_output=False)
+# the JAX Monte-Carlo script's accelerator configuration
+# (examples/monte_carlo.py:16), with its default contrast and coefficient
+# refinement
+MC_ENV = dict(MC_DIM="3", MC_REFINE="4", MC_COEF_REFINE="4",
+              MC_CONTRAST="1e2")
 # a weig path's prolonged field against the same dtype's path with K5 on
 # the symmetrized W (the weig path -> (that path, bound)): each bound is 10x
 # the difference that K8's previous design (a warp per pair on the W built
@@ -313,10 +368,13 @@ def elastic_cfg(dtype, **kw):
     return bench_cfg(dtype, **dict(dict(rhs="1; 1; 1"), **kw))
 
 
-def make_solver(cfg, elastic, **kw):
+def make_solver(cfg, elastic, reaction=False, **kw):
+    """``LODSolver`` of ``cfg``'s diffusion problem, or its elasticity or
+    reaction-diffusion problem (c = ``cfg.reaction``)."""
     from dealii_slod_tpu_torch import (DiffusionProblem, ElasticityProblem,
-                                       LODSolver)
-    problem = (ElasticityProblem if elastic else DiffusionProblem)(cfg)
+                                       LODSolver, ReactionDiffusionProblem)
+    problem = (ElasticityProblem if elastic else ReactionDiffusionProblem
+               if reaction else DiffusionProblem)(cfg)
     return LODSolver(cfg, problem, verbose=False, **kw)
 
 
@@ -453,18 +511,20 @@ def phase_build():
     print(f"[build] {dt:.2f} s  {os.path.relpath(path, HERE)}")
 
 
-def chunk_inputs(elastic=False, chunk=128):
+def chunk_inputs(elastic=False, chunk=128, reaction=False):
     """Real operators of one chunk of patches, float64: the first chunk of
-    the main-path configuration, or the chunk at the middle of the
+    the main-path configuration (with ``reaction``, of the reaction path's:
+    the mass term of c = 1 + x in the operator), or the chunk at the
+    middle of the
     elasticity configuration's patch range (its first chunk lies in the
     z = 0 layer, where the leading block of the Schur split is masked dofs
     only: an identity block with zero right-hand sides).  Returns the
     solver, its tables, the coefficient windows and the window data."""
     import torch
     from dealii_slod_tpu_torch.models import basis
-    cfg = (elastic_cfg if elastic else bench_cfg)("float64",
-                                                  eig_solver="smallk")
-    s = make_solver(cfg, elastic)
+    cfg = (elastic_cfg if elastic else bench_cfg)(
+        "float64", eig_solver="smallk", **REACTION if reaction else {})
+    s = make_solver(cfg, elastic, reaction)
     tab = s._uniform_tables()
     _, nlo, nhi, sides = s._uniform_inputs()
     p0 = (s.topo.n_patches // 2 // chunk) * chunk if elastic else 0
@@ -474,8 +534,9 @@ def chunk_inputs(elastic=False, chunk=128):
     lo = torch.as_tensor(nlo[sel], device="cuda")
     hi = torch.as_tensor(nhi[sel], device="cuda")
     sd = torch.as_tensor(sides[sel], device="cuda")
+    which = "elasticity" if elastic else "reaction" if reaction else "main"
     print(f"[kernels] chunk of patches {p0}..{p0 + chunk - 1} of "
-          f"{s.topo.n_patches} ({'elasticity' if elastic else 'main'})")
+          f"{s.topo.n_patches} ({which})")
     return s, tab, cw, lo, hi, sd
 
 
@@ -1533,8 +1594,31 @@ def phase_el_kernels(card):
     return table
 
 
-def phase_e2e_f64():
+def e2e_pair(label, make_cfg, elastic, kw, reaction=False):
+    """One 3D refine-2 l=1 step in float64 on the CPU (plain versions) and
+    on the card (kernels): u and the prolonged field within 1e-8."""
     from dealii_slod_tpu_torch import ReductionControl
+    cfg = make_cfg("float64", n_global_refinements=2, oversampling=1,
+                   coef_refinement=3, patch_chunk=32,
+                   coarse_solver=ReductionControl(200, 1e-12, 1e-12), **kw)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        # eig_block=1: the plain Jacobi stops each matrix on its own, as
+        # the kernels do
+        s = make_solver(cfg, elastic, reaction, device=dev, eig_block=1)
+        s.assemble_fine_rhs()
+        u, _ = s.build_step()(s.coef_q, s.fem_rhs)
+        out[dev] = (u.cpu(), s.prolong_lod_solution().cpu())
+    e_u = rel(out["cuda"][0], out["cpu"][0])
+    e_f = rel(out["cuda"][1], out["cpu"][1])
+    print(f"[e2e-f64] {label}: 3D refine-2 l=1 (64 patches, C = {s.C}, "
+          f"{s.solver_mode}): u rel diff {e_u:.3e}, prolonged rel diff "
+          f"{e_f:.3e} (<= 1e-8)")
+    check(e_u <= 1e-8 and e_f <= 1e-8,
+          f"CPU and CUDA steps disagree ({label})")
+
+
+def phase_e2e_f64():
     runs = {"jacobi": (bench_cfg, False, dict(eig_solver="jacobi",
                                               patch_solver="fused")),
             "smallk": (bench_cfg, False, dict(eig_solver="smallk",
@@ -1542,25 +1626,7 @@ def phase_e2e_f64():
             "elasticity": (elastic_cfg, True, dict(
                 eig_solver="smallk", patch_solver="fused_split"))}
     for label, (make_cfg, elastic, kw) in runs.items():
-        cfg = make_cfg("float64", n_global_refinements=2, oversampling=1,
-                       coef_refinement=3, patch_chunk=32,
-                       coarse_solver=ReductionControl(200, 1e-12, 1e-12),
-                       **kw)
-        out = {}
-        for dev in ("cpu", "cuda"):
-            # eig_block=1: the plain Jacobi stops each matrix on its own,
-            # as the kernels do
-            s = make_solver(cfg, elastic, device=dev, eig_block=1)
-            s.assemble_fine_rhs()
-            u, _ = s.build_step()(s.coef_q, s.fem_rhs)
-            out[dev] = (u.cpu(), s.prolong_lod_solution().cpu())
-        e_u = rel(out["cuda"][0], out["cpu"][0])
-        e_f = rel(out["cuda"][1], out["cpu"][1])
-        print(f"[e2e-f64] {label}: 3D refine-2 l=1 (64 patches, C = "
-              f"{s.C}, {s.solver_mode}): u rel diff {e_u:.3e}, prolonged "
-              f"rel diff {e_f:.3e} (<= 1e-8)")
-        check(e_u <= 1e-8 and e_f <= 1e-8,
-              f"CPU and CUDA steps disagree ({label})")
+        e2e_pair(label, make_cfg, elastic, kw)
 
 
 def profile_step(path, step, s):
@@ -1594,14 +1660,15 @@ def profile_step(path, step, s):
           f"{wall - busy:.3f} s")
 
 
-def run_path(path, cfg, timed, profile=False, elastic=False):
+def run_path(path, cfg, timed, profile=False, elastic=False,
+             reaction=False):
     """Drive one path through ``LODSolver(cfg, problem).build_step()`` on
     the card: the launch counts are set to 0 just before the first call
     and read just after the last, and must equal what the code path
     implies (``drive``); returns (solver, per-path numbers)."""
     import torch
 
-    s = make_solver(cfg, elastic)
+    s = make_solver(cfg, elastic, reaction)
     P = s.topo.n_patches
     s.assemble_fine_rhs()
     step = s.build_step()
@@ -1726,7 +1793,7 @@ def phase_elasticity(profile=False):
     return paths
 
 
-def run_solver(path, cfg, elastic=False):
+def run_solver(path, cfg, elastic=False, reaction=False):
     """Drive one path through ``LODSolver(cfg, problem).run()`` on the
     card: the launch counts are set to 0 just before the run and read just
     after, and must equal what the code path implies for one step; prints
@@ -1735,7 +1802,7 @@ def run_solver(path, cfg, elastic=False):
     import torch
     from dealii_slod_tpu_torch.utils import kernels
 
-    s = make_solver(cfg, elastic)
+    s = make_solver(cfg, elastic, reaction)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1816,11 +1883,8 @@ def phase_run():
     """``LODSolver.run()`` on the card: the reference's example, the main
     grid in plain LOD and with the eigh stage (float64), the elasticity
     configuration, and the CLI; returns the per-path numbers by path."""
-    import tempfile
-
     import torch
     from dealii_slod_tpu_torch import DiffusionProblem, LODSolver, SLODConfig
-    from dealii_slod_tpu_torch import cli
     from dealii_slod_tpu_torch.utils import errors, kernels
 
     paths = {}
@@ -1947,10 +2011,37 @@ def phase_run():
     del s, out
 
     # 5. the CLI once, 2D diffusion (float32 on the card), into a
-    # temporary directory; the solver it builds is caught to hold its
-    # launches to its code path and its results to the same configuration
-    # run on the CPU
+    # temporary directory; its results against the same configuration run
+    # on the CPU
+    s, out, counts, wall = run_cli("run-cli", ["diffusion"])
+    cfg = dataclasses.replace(s.cfg, write_output=False)
+    ref = LODSolver(cfg, DiffusionProblem(cfg), device="cpu",
+                    verbose=False).run()
+    worst = max(abs(out[k].rows[0][2][n] - v) / abs(v)
+                for k, t in ref.items() if hasattr(t, "rows")
+                for n, v in t.rows[0][2].items())
+    e_f = rel(out["lod_solution"].cpu(), ref["lod_solution"])
+    print(f"[run-cli] against the float32 CPU run: tables worst rel diff "
+          f"{worst:.3e}, LOD field {e_f:.3e} (<= {CLI_F32_BOUND:.0e})")
+    check(list(out) == list(ref) and worst <= CLI_F32_BOUND
+          and e_f <= CLI_F32_BOUND,
+          "run-cli: the card's run differs from the CPU's")
+    paths["run-cli"] = dict(counts=counts, per_step=counts, run_wall_s=wall)
+    return paths
+
+
+def run_cli(path, argv):
+    """``cli.main(argv)`` (the function ``python -m dealii_slod_tpu_torch.cli``
+    runs) once in a temporary directory, on the card: rc 0, the parameter
+    dump and the three VTU files, one solver run on the card in float32
+    (caught by wrapping ``LODSolver.run``) and the launches its code path
+    implies; returns (solver, results, launches, wall)."""
+    import tempfile
+
+    import torch
+    from dealii_slod_tpu_torch import cli
     from dealii_slod_tpu_torch.models import lod
+    from dealii_slod_tpu_torch.utils import kernels
     seen, run0 = [], lod.LODSolver.run
 
     def run_seen(self):
@@ -1966,7 +2057,8 @@ def phase_run():
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            rc = cli.main(["diffusion", os.path.join(tmp, "parameters.prm")])
+            rc = cli.main(argv[:1] + [os.path.join(tmp, "parameters.prm")]
+                          + argv[1:])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -1974,35 +2066,22 @@ def phase_run():
             os.chdir(here)
         counts = dict(kernels.launches)
         files = sorted(os.listdir(tmp))
-    print(f"[run-cli] rc {rc} in {wall:.3f} s; files {files}; launches "
+    print(f"[{path}] rc {rc} in {wall:.3f} s; files {files}; launches "
           f"{counts}")
-    check(rc == 0, "run-cli: the CLI failed")
+    check(rc == 0, f"{path}: the CLI failed")
     check({"used_parameters_2.prm", "solution_fine.vtu",
            "solution_coarse.vtu", "solution_coefficients.vtu"}
-          <= set(files), "run-cli: an output file is missing")
-    check(len(seen) == 1, "run-cli: the CLI did not run one solver")
+          <= set(files), f"{path}: an output file is missing")
+    check(len(seen) == 1, f"{path}: the CLI did not run one solver")
     s, out = seen[0]
     check(s.device.type == "cuda" and s.cfg.dtype == "float32",
-          f"run-cli: ran on {s.device} in {s.cfg.dtype}")
-    check(all(counts.get(k, 0) > 0 for k in PATH_KERNELS["run-cli"]),
-          f"a kernel of the run-cli path was not launched: {counts}")
+          f"{path}: ran on {s.device} in {s.cfg.dtype}")
+    check(all(counts.get(k, 0) > 0 for k in PATH_KERNELS[path]),
+          f"a kernel of the {path} path was not launched: {counts}")
     check(counts == expected_launches(s),
-          f"run-cli: launches differ from the expected counts "
+          f"{path}: launches differ from the expected counts "
           f"{expected_launches(s)}")
-    cfg = dataclasses.replace(s.cfg, write_output=False)
-    ref = LODSolver(cfg, DiffusionProblem(cfg), device="cpu",
-                    verbose=False).run()
-    worst = max(abs(out[k].rows[0][2][n] - v) / abs(v)
-                for k, t in ref.items() if hasattr(t, "rows")
-                for n, v in t.rows[0][2].items())
-    e_f = rel(out["lod_solution"].cpu(), ref["lod_solution"])
-    print(f"[run-cli] against the float32 CPU run: tables worst rel diff "
-          f"{worst:.3e}, LOD field {e_f:.3e} (<= {CLI_F32_BOUND:.0e})")
-    check(list(out) == list(ref) and worst <= CLI_F32_BOUND
-          and e_f <= CLI_F32_BOUND,
-          "run-cli: the card's run differs from the CPU's")
-    paths["run-cli"] = dict(counts=counts, per_step=counts, run_wall_s=wall)
-    return paths
+    return s, out, counts, wall
 
 
 def drive(path, s, fn, calls=1):
@@ -2233,13 +2312,297 @@ def phase_routes(card):
     return paths
 
 
+def reaction_kernel_rows(card):
+    """K1 and K3 against their plain versions on the first chunk of the
+    reaction path's real operator (the band and SPD block with the mass
+    term of c = 1 + x): float64 within 1e-10, float32 by ``check_case``'s
+    rule, timed; the rows count the reaction path's launches."""
+    from dealii_slod_tpu_torch.models import basis
+    from dealii_slod_tpu_torch.ops import assembly, patch_solve
+
+    _, tab, cw, lo, hi, _ = chunk_inputs(reaction=True)
+    band, A, PT_m, _ = basis.prep(tab, cw, lo, hi)
+    Xp = trace_operand(tab, patch_solve.fused_spd_multirhs_plain(A, PT_m)[0])
+    B, n, kk = A.shape[0], A.shape[-1], PT_m.shape[-1]
+    nN, n_off, nNp = band.shape[1], band.shape[2], Xp.shape[2]
+    f4 = 4
+    k1_work = (B * (n ** 3 / 3 + 2 * n * n * kk + 2 * n * kk * kk),
+               B * f4 * (n * n + 2 * n * kk + kk * kk))
+    k3_lib = trace_spmm(band.float(), nNp, tab.shiftN, tab.offs_flat)
+    args = (tab.shiftN, tab.offs_flat)
+    table = []
+    check_case(table, card, "K1 fused_spd_multirhs [reaction]",
+               f"A ({B}, {n}, {n}), B ({B}, {n}, {kk}), c = 1 + x",
+               lambda dt: (A.to(dt), PT_m.to(dt)),
+               patch_solve.fused_spd_multirhs,
+               patch_solve.fused_spd_multirhs_plain,
+               lambda o, r: max(rel(o[0], r[0]), rel(o[1], r[1])),
+               lambda a: by(*k1_work), None, path="reaction")
+    second_bound(table[-1], card, *k1_work, "bound_ms_3xtf32")
+    name = "K3 stencil_trace [reaction]"
+    spmm_check(name, k3_lib, band, Xp, tab)
+    check_case(table, card, name,
+               f"band ({B}, {nN}, {n_off}), X ({B}, 1, {nNp}, {kk}), "
+               f"c = 1 + x",
+               lambda dt: (band.to(dt), Xp.to(dt).contiguous()),
+               lambda b, x: assembly.stencil_trace(b, x, *args),
+               lambda b, x: assembly.stencil_trace_plain(b, x, *args), rel,
+               lambda a: by(B * 2 * n_off * nN * kk,
+                            B * f4 * (nN * n_off + nNp * kk + nN * kk)),
+               k3_lib, path="reaction")
+    return table
+
+
+def table_diff(out, ref):
+    """The worst difference of two ``run()`` results' tables, relative to
+    max(|value|, 1): the norms measure fields of unit size."""
+    return max(abs(out[k].rows[0][2][n] - v) / max(abs(v), 1.0)
+               for k, t in ref.items() if hasattr(t, "rows")
+               for n, v in t.rows[0][2].items())
+
+
+def phase_reaction(card, profile=False):
+    """Reaction-diffusion on the card (c = 1 + x, a mass term that varies
+    in space): the main configuration's step in float32 (the main path's
+    launches) and float64, K1's and K3's float32 gates on every chunk, K1
+    and K3 against their plain versions on the first chunk's operator, a
+    float64 refine-2 step against the CPU, ``run()`` of the manufactured
+    problem against the CPU's, and the CLI's ``reaction``; returns (kernel
+    rows, per-path numbers by path)."""
+    from dealii_slod_tpu_torch import (LODSolver, ReactionDiffusionProblem,
+                                       ReductionControl, SLODConfig)
+
+    paths, t_phase = {}, time.perf_counter()
+    s, paths["reaction"] = run_path("reaction", bench_cfg(
+        "float32", **REACTION), timed=2, profile=profile, reaction=True)
+    check(s.spec_mode == "smallk" and s.solver_mode == "fused",
+          f"reaction: spectral stage {s.spec_mode!r}, patch solver "
+          f"{s.solver_mode!r}, not the main path's")
+    check(not s.problem.is_constant() and s.coef_names == ["alpha",
+                                                           "creact"],
+          "reaction: c = 1 + x is not a varying creact coefficient")
+    check(paths["reaction"]["per_step"] == MAIN_LAUNCHES,
+          f"reaction: launches a step differ from the main path's "
+          f"{MAIN_LAUNCHES}")
+    f32 = s.prolong_lod_solution().double().cpu()
+    del s
+    s64, paths["reaction-f64"] = run_path("reaction-f64", bench_cfg(
+        "float64", eig_solver="smallk", **REACTION), timed=1, reaction=True)
+    e = rel(f32, s64.prolong_lod_solution().cpu())
+    print(f"[reaction] prolonged f32 vs f64 rel max diff {e:.3e} (<= 1e-2)")
+    check(e <= 1e-2, "reaction: f32 and f64 prolonged fields disagree")
+    print("[reaction] K1 / K3 float32 gates on every chunk, c = 1 + x:")
+    f32_gate_all_chunks(s64, s64._uniform_tables(), "K1 fused_spd_multirhs")
+    del s64
+    table = reaction_kernel_rows(card)
+    e2e_pair("reaction", bench_cfg, False, dict(
+        eig_solver="smallk", patch_solver="fused", **REACTION),
+        reaction=True)
+
+    # run() of the manufactured problem against the same run on the CPU
+    cfg = SLODConfig(**MANUFACTURED,
+                     fine_solver=ReductionControl(8000, 1e-12, 1e-12),
+                     coarse_solver=ReductionControl(4000, 1e-12, 1e-12))
+    ref = LODSolver(cfg, ReactionDiffusionProblem(cfg), device="cpu",
+                    verbose=False).run()
+    s, out, paths["reaction-run"] = run_solver("reaction-run", cfg,
+                                               reaction=True)
+    worst = table_diff(out, ref)
+    e_f = rel(out["lod_solution"].cpu(), ref["lod_solution"])
+    print(f"[reaction-run] against the CPU run: tables worst diff "
+          f"{worst:.3e} (relative to max(|v|, 1); <= 1e-10), LOD field "
+          f"{e_f:.3e} (<= 1e-10)")
+    check(list(out) == list(ref) and worst <= 1e-10 and e_f <= 1e-10,
+          "reaction-run: the card's run differs from the CPU's")
+    del s, out, ref
+
+    _, out, counts, wall = run_cli("reaction-cli", ["reaction", "--device",
+                                                    "cuda"])
+    check(all(math.isfinite(v) for t in out.values() if hasattr(t, "rows")
+              for v in t.rows[0][2].values()),
+          "reaction-cli: a table is not finite")
+    paths["reaction-cli"] = dict(counts=counts, per_step=counts,
+                                 run_wall_s=wall)
+    print(f"[reaction] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return table, paths
+
+
+def env_run(fn, **env):
+    """``fn()`` with the environment variables ``env`` set, the caller's
+    restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def phase_monte_carlo(card):
+    """The Monte-Carlo example on the card at the JAX script's TPU
+    configuration (``MC_DIM=3 MC_REFINE=4 MC_SAMPLES=32``, coefficient
+    refinement 4, contrast 1e2, float32) with the device sampler's
+    lognormal fields, then 8 samples of the host's random field; the
+    sampler's statistics, seed and CPU-vs-card noise-to-field; the sweep
+    at full size and, in float64 at refine-3, against lone steps; and
+    K1's / K3's float32 gates on every chunk of a lognormal sample, the
+    channel field and the random field at coef_max = 1e4; returns the
+    per-path numbers by path."""
+    import numpy as np
+    import torch
+    from dealii_slod_tpu_torch.examples import monte_carlo
+    from dealii_slod_tpu_torch.models.coefficients import (
+        lognormal_from_noise, lognormal_lattice_batch)
+    from dealii_slod_tpu_torch.parallel import stack_fields, sweep_step
+    from dealii_slod_tpu_torch.utils import kernels
+
+    paths, runs, t_phase = {}, {}, time.perf_counter()
+    for path, field, n in (("monte-carlo", "lognormal", 32),
+                           ("monte-carlo-random", "random", 8)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = env_run(lambda: monte_carlo.main([]), **MC_ENV,
+                      MC_SAMPLES=str(n), MC_FIELD=field)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        s, walls, q = res["solver"], res["walls"], np.array(res["qoi"])
+        per = expected_launches(s)
+        print(f"[{path}] {n} samples, {s.topo.n_patches} patches "
+              f"{s.cfg.dtype} ({s.spec_mode}, {s.solver_mode}) [{card}]: "
+              f"sampler {1e3 * res['sampler_s']:.1f} ms; first call "
+              f"{res['first_s']:.3f} s; per sample median "
+              f"{1e3 * np.median(walls):.1f} ms (min {1e3 * min(walls):.1f}"
+              f", max {1e3 * max(walls):.1f}); {n / sum(walls):.2f} "
+              f"samples/s; peak {peak / 2**30:.2f} GiB; QoI mean "
+              f"{q.mean():.6e} std {q.std():.3e}; wall {wall:.2f} s; "
+              f"launches {counts} ({n + 1} steps of {per}: chunks of "
+              f"{s.cfg.patch_chunk or s.topo.n_patches} patches)")
+        check(s.device.type == "cuda" and s.cfg.dtype == "float32"
+              and s.spec_mode == "smallk" and s.solver_mode == "fused",
+              f"{path}: not the main path's route on the card in float32")
+        # the script's default patch_chunk = 0: all 4096 patches in one
+        # chunk, so a step launches each kernel once per chunk-level call
+        check(s.cfg.patch_chunk == 0 and counts == {
+            k: v * (n + 1) for k, v in per.items()}
+            and set(per) == set(MAIN_LAUNCHES),
+            f"{path}: launches differ from {n + 1} steps of the main "
+            "route in one chunk")
+        check(bool(np.isfinite(q).all()) and bool((q != 0).all()),
+              f"{path}: a QoI is not finite and non-zero")
+        paths[path] = dict(counts=counts, per_step=per, first_call_s=res[
+            "first_s"], samples_per_s=n / sum(walls), peak_bytes=peak)
+        runs[field] = res
+
+    # the device sampler: statistics, its seed, and noise to field on the
+    # card against the CPU
+    res = runs["lognormal"]
+    lat, refine = res["lattice"], int(MC_ENV["MC_COEF_REFINE"])
+    lg = torch.log(lat)
+    mu, sigma = 0.5 * math.log(1e2), 0.25 * math.log(1e2)
+    d_mu, d_sig = abs(float(lg.mean()) - mu), abs(float(lg.std(
+        correction=0)) - sigma)
+    gen = torch.Generator(device="cuda")
+
+    def draw():
+        return lognormal_lattice_batch(gen.manual_seed(0), lat.shape[0],
+                                       refine, 3, 1.0, 1e2, device="cuda")
+
+    same = torch.equal(draw(), lat)
+    w = torch.randn((4,) + (2 ** refine,) * 3, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(1))
+    e_n = rel(lognormal_from_noise(w.cuda(), 1.0, 1e2).cpu(),
+              lognormal_from_noise(w, 1.0, 1e2))
+    print(f"[monte-carlo] sampler {tuple(lat.shape)} {lat.dtype}: log-mean "
+          f"off by {d_mu:.3f} (< 0.6), log-std by {d_sig:.3f} (< 0.3); "
+          f"the same seed again equal {same}; {cuda_ms(draw):.3f} ms a "
+          f"draw [{card}]; CPU noise on the card vs the CPU {e_n:.3e} "
+          f"(<= 1e-12)")
+    check(d_mu < 0.6 and d_sig < 0.3 and same and e_n <= 1e-12,
+          "monte-carlo: the device sampler fails a check")
+
+    # the sweep at full size on the example's first 4 fields: the same
+    # QoIs as the example's lone steps
+    s, field = res["solver"], res["field"]
+    batch = stack_fields([field(i + 1) for i in range(4)])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    u, _ = sweep_step(s)(batch, s.fem_rhs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    e_q = max(abs(float(u[i].mean()) - res["qoi"][i]) / abs(res["qoi"][i])
+              for i in range(4))
+    print(f"[sweep-f32] 4 samples in {wall:.3f} s; launches {counts}; QoIs "
+          f"vs the example's lone steps rel {e_q:.3e} (<= 1e-6)")
+    check(counts == {k: 4 * v for k, v in expected_launches(s).items()},
+          "sweep-f32: launches differ from 4 of the example's steps")
+    check(e_q <= 1e-6, "sweep-f32: the sweep's QoIs differ from the lone "
+          "steps'")
+    paths["sweep-f32"] = dict(counts=counts, per_step={
+        k: v / 4 for k, v in counts.items()})
+    del runs, res, s, field, batch, u
+
+    # the sweep against lone steps, 3D refine-3 float64
+    s3 = make_solver(bench_cfg("float64", n_global_refinements=3,
+                               eig_solver="smallk", coef_refinement=refine),
+                     False)
+    s3.assemble_fine_rhs()
+    idx = monte_carlo.lattice_index(s3.qpts, refine, "cuda")
+    fields = [{"alpha": f[idx]} for f in lognormal_lattice_batch(
+        gen.manual_seed(2), 3, refine, 3, 1.0, 1e2, device="cuda")]
+    u, A_st = sweep_step(s3)(stack_fields(fields), s3.fem_rhs)
+    e_s = 0.0
+    for i, f in enumerate(fields):
+        ui, Ai = s3.build_step()(f, s3.fem_rhs)
+        e_s = max(e_s, rel(u[i], ui), rel(A_st[i], Ai))
+    print(f"[sweep-r3-f64] 3 lognormal samples, {s3.topo.n_patches} "
+          f"patches: sweep vs lone steps, u and A_st rel {e_s:.3e} "
+          f"(<= 1e-10)")
+    check(e_s <= 1e-10, "sweep-r3-f64: the sweep differs from lone steps")
+    del s3, fields, u, A_st
+
+    # K1's and K3's float32 gates on every chunk of other fields
+    sample = lat[1]
+    gates = {
+        "a lognormal sample of the run": (bench_cfg(
+            "float64", eig_solver="smallk", coef_refinement=refine), sample),
+        "the channel field (2D refine-6, 4096 patches)": (bench_cfg(
+            "float64", dim=2, n_global_refinements=6, eig_solver="smallk",
+            coef_field="channel"), None),
+        "the random field at coef_max = 1e4": (bench_cfg(
+            "float64", eig_solver="smallk", coef_max=1e4), None)}
+    for label, (cfg, lattice) in gates.items():
+        t0 = time.perf_counter()
+        sg = make_solver(cfg, False)
+        if lattice is not None:
+            sg.coef_q = {"alpha": lattice[monte_carlo.lattice_index(
+                sg.qpts, refine, "cuda")]}
+        print(f"[monte-carlo] K1 / K3 float32 gates on every chunk, "
+              f"{label}:")
+        f32_gate_all_chunks(sg, sg._uniform_tables(), "K1 fused_spd_multirhs")
+        print(f"[monte-carlo]   ({time.perf_counter() - t0:.1f} s)")
+        del sg
+    print(f"[monte-carlo] phase done in {time.perf_counter() - t_phase:.1f} "
+          f"s")
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one step of the jacobi, main, weig "
-                    "and elasticity paths (torch.profiler)")
+                    help="also profile one step of the jacobi, main, weig, "
+                    "elasticity and reaction paths (torch.profiler)")
     ap.add_argument("--root", default=HERE,
                     help="a directory inside this checkout that holds "
                     "another commit's dealii_slod_tpu_torch (for example "
@@ -2292,6 +2655,12 @@ def main():
             paths.update(phase_run())
         if "routes" in phases:
             paths.update(phase_routes(card))
+        if "reaction" in phases:
+            rows, more = phase_reaction(card, args.profile)
+            table += rows
+            paths.update(more)
+        if "monte-carlo" in phases:
+            paths.update(phase_monte_carlo(card))
     except Exception as exc:                     # any phase failure
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr)

@@ -11,8 +11,10 @@ JAX package: the host-side modules it shares with the reference (``config``,
 
 What runs: the reference's whole pipeline, ``LODSolver.run()`` (basis,
 coarse operator and solve, the fine and coarse FEM comparison solves, the
-error tables, VTU output), for scalar diffusion and linear elasticity
-(C = dim components), plain LOD (``SLODConfig()``'s default) or SLOD, on
+error tables, VTU output), for scalar diffusion, reaction-diffusion
+(``ReactionDiffusionProblem``: a mass term weighted by ``cfg.reaction``)
+and linear elasticity (C = dim components), plain LOD
+(``SLODConfig()``'s default) or SLOD, on
 the reference's knobs: ``eig_solver="auto"`` is the smallk spectral stage
 on the card in float32 and the ``eigh`` stage ("lapack") elsewhere, also
 "smallk", "jacobi", "lapack" / "lax"; ``patch_solver="auto"`` applies the
@@ -20,8 +22,12 @@ reference's size rule (the fused patch solve, its 2x2 Schur split where
 the block is too large, as 3D elasticity's), also "lax" (the per-patch
 Cholesky solve) and "panel"; ``kernel_mode="classes"``,
 ``assembly_mode="scatter"``, ``trace_kernel="off"`` and
-``coarse_solve="direct"``; basis checkpoints (``utils/checkpoint.py``)
-and the examples (``python -m dealii_slod_tpu_torch.examples.<name>``)::
+``coarse_solve="direct"``; basis checkpoints (``utils/checkpoint.py``),
+the sample-axis sweep over a batch of coefficient fields
+(``parallel.sweep_step``, with the device sampler
+``models.coefficients.lognormal_lattice_batch``) and the examples
+(``python -m dealii_slod_tpu_torch.examples.<name>``: convergence_study,
+multi_rhs, monte_carlo)::
 
     cfg = SLODConfig()                                  # 2D plain LOD, f64
     results = LODSolver(cfg, DiffusionProblem(cfg)).run()   # on the card
@@ -30,10 +36,10 @@ and the examples (``python -m dealii_slod_tpu_torch.examples.<name>``)::
     u, A_st = s.build_step()(s.coef_q, s.fem_rhs)       # the step alone
 
 and the command line, ``python -m dealii_slod_tpu_torch.cli
-diffusion|elasticity [file.prm] [--device cpu]``.  ``LODSolver`` and the
-CLI run on the card unless given ``device="cpu"``.  Other coefficient
-sets and the sharded step raise ``NotImplementedError`` naming their
-ROADMAP.md entry.
+diffusion|elasticity|reaction [file.prm] [--device cpu]``.  ``LODSolver``,
+the sweep, the examples and the CLI run on the card unless given
+``device="cpu"``.  The sharded step and the sharded sweep raise
+``NotImplementedError`` naming their ROADMAP.md entry.
 """
 
 __version__ = "0.1.0"
@@ -43,6 +49,7 @@ from dealii_slod_tpu_torch.grid import GridSpec, PatchTopology
 from dealii_slod_tpu_torch.models.diffusion import DiffusionProblem
 from dealii_slod_tpu_torch.models.elasticity import ElasticityProblem
 from dealii_slod_tpu_torch.models.lod import LODSolver
+from dealii_slod_tpu_torch.models.reaction import ReactionDiffusionProblem
 from dealii_slod_tpu_torch.utils.errors import ConvergenceTable, error_norms
 from dealii_slod_tpu_torch.utils.state import load_state
 
@@ -53,6 +60,7 @@ __all__ = [
     "GridSpec",
     "LODSolver",
     "PatchTopology",
+    "ReactionDiffusionProblem",
     "ReductionControl",
     "SLODConfig",
     "error_norms",

@@ -1,6 +1,6 @@
-"""Command-line applications of the port: ``diffusion`` and ``elasticity``
-(counterpart of ``dealii_slod_tpu/cli.py``; ``reaction`` is refused until
-reaction-diffusion is ported).
+"""Command-line applications of the port: ``diffusion``, ``elasticity`` and
+``reaction`` (reaction-diffusion, beyond the reference set; counterpart of
+``dealii_slod_tpu/cli.py``).
 
 One executable per problem family, taking an optional ``.prm`` parameter
 file; a first run with a missing parameter file writes the defaults.  The
@@ -9,6 +9,7 @@ run goes on the card unless ``--device cpu`` is given.
 Usage:
     python -m dealii_slod_tpu_torch.cli diffusion  [parameters.prm] [options]
     python -m dealii_slod_tpu_torch.cli elasticity [parameters.prm] [options]
+    python -m dealii_slod_tpu_torch.cli reaction   [parameters.prm] [options]
 """
 
 from __future__ import annotations
@@ -74,16 +75,14 @@ def main(argv=None) -> int:
     else:
         cfg = SLODConfig.from_prm(args.prm, **overrides)
 
-    from dealii_slod_tpu_torch.models.diffusion import DiffusionProblem
-    from dealii_slod_tpu_torch.models.elasticity import ElasticityProblem
-    from dealii_slod_tpu_torch.models.lod import (REACTION, LODSolver,
-                                                  _not_ported)
+    from dealii_slod_tpu_torch.models import (DiffusionProblem,
+                                              ElasticityProblem, LODSolver,
+                                              ReactionDiffusionProblem)
 
     try:
-        if args.problem == "reaction":
-            _not_ported("the reaction-diffusion problem", REACTION)
         prob = {"diffusion": DiffusionProblem,
-                "elasticity": ElasticityProblem}[args.problem](cfg)
+                "elasticity": ElasticityProblem,
+                "reaction": ReactionDiffusionProblem}[args.problem](cfg)
         LODSolver(cfg, prob, device=args.device, verbose=True).run()
     except Exception as exc:  # mirror the reference's exception report
         print("----------------------------------------------------",

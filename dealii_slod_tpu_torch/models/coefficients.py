@@ -1,8 +1,10 @@
 """Coefficient fields (rough / high-contrast / channel).
 
-The port's own copy of ``dealii_slod_tpu/models/coefficients.py``,
-without its device-side batch sampler ``lognormal_lattice_batch``
-(``tests/test_torch_copies.py`` holds the two equal).
+The port's own copy of ``dealii_slod_tpu/models/coefficients.py``
+(``tests/test_torch_copies.py`` holds the two equal), with its device-side
+batch sampler ``lognormal_lattice_batch`` on a ``torch.Generator``; the
+noise-to-field part, ``lognormal_from_noise``, is a function of the noise
+tensor, so the same noise gives the same fields in both packages.
 
 Mirrors the reference's ``problem_parameter`` (include/Diffusion.h:7-54 and
 its duplicate include/Elasticity.h:7-54): a piecewise-constant field on a
@@ -22,6 +24,7 @@ the golden outputs (tests/Poisson_LOD_Example.output) can be matched to
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class GlibcRand:
@@ -232,3 +235,35 @@ def sample_gaussian_lattice(rng, N: int, dim: int,
     filt = _spectral_filter(N, dim, corr_len)
     z = np.fft.ifftn(np.fft.fftn(w) * filt).real
     return z / max(z.std(), 1e-30)
+
+
+def lognormal_from_noise(w: torch.Tensor, min_val: float, max_val: float,
+                         corr_len: float = 0.1) -> torch.Tensor:
+    """White noise (S, N, ..., N) -> (S, N^dim) lognormal lattice fields:
+    each sample filtered by ``_spectral_filter`` (``torch.fft``, on the
+    noise's device), normalized by its own standard deviation, and mapped
+    to the parameterization of ``LognormalField``."""
+    S, N, dim = w.shape[0], w.shape[1], w.dim() - 1
+    filt = torch.as_tensor(_spectral_filter(N, dim, corr_len),
+                           dtype=w.dtype, device=w.device)
+    axes = tuple(range(1, dim + 1))
+    z = torch.fft.ifftn(torch.fft.fftn(w, dim=axes) * filt, dim=axes).real
+    z = z / z.std(dim=axes, correction=0, keepdim=True).clamp_min(1e-30)
+    mu = 0.5 * (np.log(min_val) + np.log(max_val))
+    sigma = 0.25 * (np.log(max_val) - np.log(min_val))
+    return torch.exp(mu + sigma * z).reshape(S, -1)
+
+
+def lognormal_lattice_batch(generator: torch.Generator, S: int,
+                            refinement: int, dim: int, min_val: float,
+                            max_val: float, corr_len: float = 0.1,
+                            device="cuda") -> torch.Tensor:
+    """Device-side batch sampler for Monte-Carlo sweeps: (S, N^dim) float64
+    lognormal lattice fields, N = 2^refinement, from one stream of white
+    noise drawn by ``generator`` (a ``torch.Generator`` on ``device``, the
+    card unless the caller asks for the CPU) and filtered on the device.
+    Pairs with ``parallel.sweep_step``."""
+    N = 2 ** refinement
+    w = torch.randn((S,) + (N,) * dim, generator=generator,
+                    dtype=torch.float64, device=device)
+    return lognormal_from_noise(w, min_val, max_val, corr_len)

@@ -5,17 +5,17 @@ comparison solves, the error tables, VTU output and ``run()``.
 
 The tables are tensors on the ``device`` given to the constructor, the
 card unless the caller asks for the CPU.  The ported routes are 3D / 2D
-scalar diffusion (C = 1) and linear elasticity (C = dim), plain LOD or
-SLOD, with the fused patch solver, its 2x2 Schur split, the panel LDL^T
-or the per-patch Cholesky solve (``patch_solver="auto"`` picks by the
-reference's size rule), the smallk, Jacobi or ``eigh`` spectral stage
+scalar diffusion and reaction-diffusion (C = 1) and linear elasticity
+(C = dim), plain LOD or SLOD, with the fused patch solver, its 2x2 Schur
+split, the panel LDL^T or the per-patch Cholesky solve
+(``patch_solver="auto"`` picks by the reference's size rule), the
+smallk, Jacobi or ``eigh`` spectral stage
 (``eig_solver="auto"``: smallk on the card in float32, ``eigh`` ("lapack")
 elsewhere), the banded or the scatter assembly, the trace kernel or its
 scan, the coarse CG or the direct coarse solve; ``kernel_mode="classes"``
 builds the basis per patch shape class (``models/classes.py``), and on a
 constant field the uniform route builds one patch per window signature.
-The coefficient sets other than diffusion's and elasticity's and the
-sharded step raise ``NotImplementedError`` naming their ROADMAP.md
+The sharded step raises ``NotImplementedError`` naming its ROADMAP.md
 entry."""
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from dealii_slod_tpu_torch.models import basis, classes, stencil
 from dealii_slod_tpu_torch.ops import element
 from dealii_slod_tpu_torch.ops.assembly import (FineOperator,
                                                 assemble_load_vector,
+                                                check_coefs,
                                                 make_subcell_matrices)
 from dealii_slod_tpu_torch.ops.solvers import (cg, cholesky_solve,
                                                dense_dirichlet_solve)
@@ -44,8 +45,7 @@ from dealii_slod_tpu_torch.utils import errors
 from dealii_slod_tpu_torch.utils.errors import ConvergenceTable, host_array
 from dealii_slod_tpu_torch.utils.timers import StageTimer
 
-# the ROADMAP.md Queue 1 entries that the refusals below name, by title
-REACTION = "reaction-diffusion and the device sampler"
+# the ROADMAP.md Queue 1 entry that the refusals below name, by title
 SCALING = "scaling axes"
 
 
@@ -160,8 +160,8 @@ def check_supported(cfg: SLODConfig, problem, device: torch.device) -> None:
 
 
 class LODSolver:
-    """The SLOD pipeline (diffusion or elasticity) on one torch device, the
-    card unless ``device="cpu"`` is asked for.
+    """The SLOD pipeline (diffusion, reaction-diffusion or elasticity) on
+    one torch device, the card unless ``device="cpu"`` is asked for.
 
     ``eig_block``: matrices that share the adaptive Jacobi stop in the
     plain versions of K5 and K8 (CPU tensors).  None does what the TPU
@@ -197,8 +197,7 @@ class LODSolver:
         self.coef_q = {k: torch.as_tensor(v, dtype=dt, device=dev)
                        for k, v in problem.coefficients(self.qpts).items()}
         self.coef_names = sorted(self.coef_q)
-        if self.coef_names != (["alpha"] if C == 1 else ["lam", "mu"]):
-            _not_ported(f"coefficients {self.coef_names}", REACTION)
+        check_coefs("LODSolver", self.coef_q)
         self.conn = torch.as_tensor(global_connectivity(self.grid),
                                     device=dev)
 

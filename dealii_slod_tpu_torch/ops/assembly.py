@@ -6,9 +6,10 @@ On the uniform subcell grid the patch stiffness is a 3^dim-point nodal
 stencil of C x C blocks: ``band[i, o, c, d] = sum_{name, r, q}
 coef_name[subcell(i, r), q] * T_name[r, q, o, c, d]`` with r the 2^dim
 subcells adjacent to node i and T read off the reference element matrix
-(``make_band_tensors``): ``alpha`` for scalar diffusion (C = 1), ``lam``
-and ``mu`` for linear elasticity (C = dim).  Everything downstream consumes
-the band, flat as (nN, 3^dim * C * C) with column o*C*C + c*C + d; the
+(``make_band_tensors``): ``alpha`` for scalar diffusion (C = 1), with
+``creact`` (the mass tensor) for reaction-diffusion, ``lam`` and ``mu``
+for linear elasticity (C = dim).  Everything downstream consumes the
+band, flat as (nN, 3^dim * C * C) with column o*C*C + c*C + d; the
 dense SPD interior block is placed from it by the banded-stride embedding
 (``bands_to_dense_mm``), dofs interleaved as node * C + c.
 """
@@ -194,29 +195,33 @@ def stencil_trace(band: torch.Tensor, Xp: torch.Tensor, shiftN: int,
 # Global fine grid: subcell matrices, load vector and the fine operator
 # ---------------------------------------------------------------------------
 
-def _check_coefs(what: str, coefs) -> None:
-    if set(coefs) not in ({"alpha"}, {"lam", "mu"}):
-        raise NotImplementedError(
-            f"{what}: coefficients {sorted(coefs)} (only diffusion's "
-            "'alpha' and elasticity's 'lam', 'mu' are ported; ROADMAP.md "
-            "Queue 1: reaction-diffusion and the device sampler)")
+def check_coefs(what: str, coefs) -> None:
+    if set(coefs) not in ({"alpha"}, {"alpha", "creact"}, {"lam", "mu"}):
+        raise ValueError(
+            f"{what}: coefficients {sorted(coefs)}; a problem names "
+            "'alpha' (diffusion), 'alpha' and 'creact' (reaction-"
+            "diffusion) or 'lam' and 'mu' (elasticity)")
 
 
 def make_subcell_matrices(et: ElementTensors,
                           coefs: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Per-subcell element stiffness matrices from coefficient values
-    (..., n_sub, nq): ``alpha`` (scalar diffusion) or ``mu`` / ``lam``
-    (linear elasticity) -> (..., n_sub, m C, m C), local dof = node * C +
-    component."""
-    _check_coefs("make_subcell_matrices", coefs)
+    (..., n_sub, nq): ``alpha`` (scalar diffusion; with ``creact`` the
+    creact-weighted mass term is added, reaction-diffusion) or ``mu`` /
+    ``lam`` (linear elasticity) -> (..., n_sub, m C, m C), local dof =
+    node * C + component."""
+    check_coefs("make_subcell_matrices", coefs)
     c0 = next(iter(coefs.values()))
 
     def t(a):
         return torch.as_tensor(a, dtype=c0.dtype, device=c0.device)
 
     if "alpha" in coefs:
-        return torch.einsum("...sq,qij->...sij", coefs["alpha"],
-                            t(et.K_grad))
+        out = torch.einsum("...sq,qij->...sij", coefs["alpha"], t(et.K_grad))
+        if "creact" in coefs:
+            out = out + torch.einsum("...sq,qij->...sij", coefs["creact"],
+                                     t(et.M))
+        return out
     return (torch.einsum("...sq,qIJ->...sIJ", coefs["mu"], t(et.K_mu))
             + torch.einsum("...sq,qIJ->...sIJ", coefs["lam"], t(et.K_lam)))
 
@@ -238,15 +243,17 @@ def assemble_dense_batch(Ksub: torch.Tensor, flat_idx: torch.Tensor,
 class FineOperator:
     """Matrix-free global Q_iso_Q1 stiffness operator on the fine grid:
     u -> scatter_add(conn, Ksub(coefs) @ gather(conn, u)), scalar diffusion
-    (``alpha``) or linear elasticity (``mu``, ``lam``).  With
-    ``dirichlet_mask`` ((n_nodes,) bool, True on constrained nodes) the
-    call is the constrained operator: zero boundary values in, identity
-    rows out (the reference's AffineConstraints elimination)."""
+    (``alpha``), reaction-diffusion (``alpha``, ``creact``: the stiffness
+    plus the creact-weighted mass term) or linear elasticity (``mu``,
+    ``lam``).  With ``dirichlet_mask`` ((n_nodes,) bool, True on
+    constrained nodes) the call is the constrained operator: zero boundary
+    values in, identity rows out (the reference's AffineConstraints
+    elimination)."""
 
     def __init__(self, et: ElementTensors, conn: torch.Tensor,
                  coefs: Dict[str, torch.Tensor],
                  dirichlet_mask: torch.Tensor | None = None):
-        _check_coefs("FineOperator", coefs)
+        check_coefs("FineOperator", coefs)
         self.conn = conn.long()
         self.coefs = coefs
         self.dirichlet_mask = dirichlet_mask
@@ -257,6 +264,7 @@ class FineOperator:
 
         self._K = {"alpha": t(et.K_grad)} if "alpha" in coefs else {
             "mu": t(et.K_mu), "lam": t(et.K_lam)}
+        self._M = t(et.M) if "creact" in coefs else None
 
     def _apply_raw(self, u: torch.Tensor) -> torch.Tensor:
         """Unconstrained matvec, u: (n_nodes, C) -> (n_nodes, C)."""
@@ -264,6 +272,10 @@ class FineOperator:
             ue = u[self.conn, 0]                             # (n_sub, m)
             out_s = torch.einsum("sq,qij,sj->si", self.coefs["alpha"],
                                  self._K["alpha"], ue)
+            if self._M is not None:
+                out_s = out_s + torch.einsum("sq,qij,sj->si",
+                                             self.coefs["creact"], self._M,
+                                             ue)
             out = torch.zeros_like(u[:, 0])
             out.index_add_(0, self.conn.reshape(-1), out_s.reshape(-1))
             return out[:, None]
@@ -296,7 +308,11 @@ class FineOperator:
                    else int(self.conn.max()) + 1)
         if "alpha" in self.coefs:
             dloc = torch.einsum("sq,qii->si", self.coefs["alpha"],
-                                self._K["alpha"])[..., None]
+                                self._K["alpha"])
+            if self._M is not None:
+                dloc = dloc + torch.einsum("sq,qii->si",
+                                           self.coefs["creact"], self._M)
+            dloc = dloc[..., None]
         else:
             dloc = sum(torch.einsum("sq,qII->sI", self.coefs[name],
                                     self._K[name])

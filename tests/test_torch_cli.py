@@ -1,8 +1,8 @@
 """The port's command-line application against the JAX package's: the
 same arguments (plus ``--device``), the same default parameter file, a
 ``--device cpu`` run with rc 0 and its output files, VTU arrays equal to
-the reference's, and the refusal of ``reaction``; and the copied VTU
-writers (``utils/io.py``, ``utils/native.py``) read back."""
+the reference's, and ``reaction``'s run beside the reference's; and the
+copied VTU writers (``utils/io.py``, ``utils/native.py``) read back."""
 
 import os
 import xml.etree.ElementTree as ET
@@ -113,13 +113,26 @@ def test_vtu_arrays_match_the_reference(runs, name):
 
 
 def test_reaction_is_refused(tmp_path, monkeypatch, capsys):
-    """``reaction`` is not ported: rc 1 and the reference's exception
-    report, naming its ROADMAP.md entry."""
-    monkeypatch.chdir(tmp_path)
-    assert cli.main(["reaction", "--device", "cpu", "--no-output"]) == 1
-    err = capsys.readouterr().err
-    assert "Exception on processing" in err
-    assert "ROADMAP.md Queue 1: reaction-diffusion" in err
+    """``reaction`` was refused until reaction-diffusion was ported; now
+    both CLIs run it (first run, defaults, c = 1) on the CPU with rc 0 and
+    no exception report, and its VTU arrays equal the reference's to
+    1e-10 relative."""
+    for name, main, argv in (
+            ("port", cli.main, ["reaction", "--device", "cpu"]),
+            ("jax", jax_cli.main, ["reaction"])):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        assert main(argv) == 0
+        assert "Exception on processing" not in capsys.readouterr().err
+    for f in VTU:
+        a = read_vtu(tmp_path / "port" / f)
+        b = read_vtu(tmp_path / "jax" / f)
+        assert list(a) == list(b)
+        for key in b:
+            scale = max(float(np.abs(b[key]).max()), 1e-300)
+            assert float(np.abs(a[key].astype(np.float64)
+                                - b[key].astype(np.float64)).max()) \
+                <= 1e-10 * scale, (f, key)
 
 
 def test_existing_prm_and_options(tmp_path, monkeypatch):

@@ -2,7 +2,8 @@
 it runs on the card unless asked for the CPU and refuses a CUDA device that
 is not there, it resolves the "auto" knobs by the reference's rules, every
 knob value of the basis and coarse routes builds and steps, and what it
-does not implement raises, naming its ROADMAP.md entry by title."""
+does not implement (the sharded step and sweep) raises, naming its
+ROADMAP.md entry by title."""
 
 import os
 import re
@@ -80,6 +81,25 @@ def test_import_and_cpu_step_never_load_jax():
         out = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
                            verbose=False).run()
         assert "error_LOD_FEMh" in out
+        # reaction-diffusion, the sampler, the sweep and the Monte-Carlo
+        # example
+        import dealii_slod_tpu_torch.examples.monte_carlo
+        from dealii_slod_tpu_torch.models.coefficients import (
+            lognormal_lattice_batch)
+        from dealii_slod_tpu_torch.parallel import stack_fields, sweep_step
+        cfg = pt.SLODConfig(reaction="1 + x", solve_fine_problem=True)
+        out = pt.LODSolver(cfg, pt.ReactionDiffusionProblem(cfg),
+                           device="cpu", verbose=False).run()
+        assert "error_LOD_FEMh" in out
+        s = pt.LODSolver(cfg, pt.ReactionDiffusionProblem(cfg),
+                         device="cpu", verbose=False)
+        s.assemble_fine_rhs()
+        lat = lognormal_lattice_batch(torch.Generator().manual_seed(0), 2,
+                                      2, 2, 1.0, 10.0, device="cpu")
+        u, _ = sweep_step(s)(stack_fields([{"alpha": s.coef_q["alpha"],
+                                            "creact": s.coef_q["creact"]}
+                                           ] * 2), s.fem_rhs)
+        assert lat.shape == (2, 16) and u.shape == (2, 16, 1)
         loaded = sorted(m for m in sys.modules
                         if m in ("jax", "jaxlib", "dealii_slod_tpu")
                         or m.startswith(("jax.", "jaxlib.",
@@ -103,11 +123,17 @@ def test_cuda_device_without_gpu_raises():
                      verbose=False)
 
 
-def test_entry_points_default_to_the_card():
-    """``LODSolver`` and ``load_state`` run on the card unless given
-    ``device="cpu"``: with no GPU, the defaults raise."""
+def test_entry_points_default_to_the_card(monkeypatch):
+    """``LODSolver``, ``load_state``, the device sampler and the Monte-Carlo
+    example run on the card unless given ``device="cpu"``: with no GPU,
+    the defaults raise.  ``sweep_step`` runs where its solver runs, the
+    card unless the solver was built for the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
+    from dealii_slod_tpu_torch.examples import monte_carlo
+    from dealii_slod_tpu_torch.models.coefficients import (
+        lognormal_lattice_batch)
+    from dealii_slod_tpu_torch.parallel import sweep_step
     cfg = tiny_cfg()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.LODSolver(cfg, pt.DiffusionProblem(cfg), verbose=False)
@@ -116,6 +142,17 @@ def test_entry_points_default_to_the_card():
     state = pt.load_state({"alpha": np.ones((4, 4))}, np.ones((9, 1)),
                           "cpu")
     assert state.fem_rhs.dtype == torch.float32
+    with pytest.raises((RuntimeError, AssertionError)):
+        lognormal_lattice_batch(torch.Generator(), 2, 2, 2, 1.0, 10.0)
+    monkeypatch.setenv("MC_REFINE", "2")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        monte_carlo.main([])
+    s = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
+                     verbose=False)
+    s.assemble_fine_rhs()
+    u, _ = sweep_step(s)({"alpha": s.coef_q["alpha"][None].float()},
+                         s.fem_rhs)
+    assert u.device == s.device and u.dtype == s.dtype
 
 
 def test_auto_spectral_stage_on_cpu_is_eigh():
@@ -249,27 +286,28 @@ def _queue1_text():
     return text.split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
 
 
-def test_refusals_name_a_queue1_title():
+def test_refusals_name_a_queue1_title(monkeypatch):
     """Each refusal names a Queue 1 entry of ROADMAP.md by its title (a
     bold item heading there), so renumbering the queue cannot break it:
-    the coefficient sets, the sharded step and the CLI's reaction problem
-    (which raises as the coefficient sets do)."""
+    the sharded step, the sharded sweep and the Monte-Carlo example's
+    MC_SHARD."""
+    from dealii_slod_tpu_torch.examples import monte_carlo
     from dealii_slod_tpu_torch.models import lod
-    from dealii_slod_tpu_torch.ops.assembly import FineOperator
+    from dealii_slod_tpu_torch.parallel import sweep_step
     msgs = []
     s = pt.LODSolver(tiny_cfg(), pt.DiffusionProblem(tiny_cfg()),
                      device="cpu", verbose=False)
+    monkeypatch.setenv("MC_SHARD", "4")
     for call in (lambda: s.build_step(mesh=object()),
-                 lambda: FineOperator(s.et, s.conn,
-                                      {"alpha": s.coef_q["alpha"],
-                                       "creact": s.coef_q["alpha"]})):
+                 lambda: sweep_step(s, mesh=object(), axis="samples"),
+                 lambda: monte_carlo.main(["--device", "cpu"])):
         with pytest.raises(NotImplementedError) as info:
             call()
         msgs.append(str(info.value))
     headings = [h.lower() for h in
                 re.findall(r"^\d+\. \*\*(.+?)\.?\*\*", _queue1_text(),
                            re.M)]
-    titles = {lod.REACTION, lod.SCALING}
+    titles = {lod.SCALING}
     for msg in msgs:
         title = re.search(r"ROADMAP\.md Queue 1: ([^)]+)\)", msg).group(1)
         assert title in titles, msg
