@@ -149,7 +149,27 @@ Phases (each prints its numbers; any failure exits non-zero):
    QoIs as the example's lone steps) and, in float64 at refine-3,
    against lone steps (1e-10); K1's and K3's float32 gates on every chunk
    of a lognormal sample, of the channel field (2D refine-6) and of the
-   random field at coef_max = 1e4.
+   random field at coef_max = 1e4;
+14. scale: the JAX package's largest configurations, one first call and
+   one timed call each: ``r5-diffusion`` (3D refine-5, 32768 patches; its
+   prolonged field within 1e-2 of the float64 smallk step's),
+   ``r5-elasticity`` (the same grid with C = 3; the plane-chunked coarse
+   build, no float64 twin), ``l3-diffusion`` (refine-4, l = 3: the Schur
+   split at C = 1) and ``l3-elasticity-r3`` (refine-3, l = 3, chunks of
+   32: the per-patch Cholesky solve), each l = 3 path within 1e-2 of its
+   float64 twin on the eigh stage; per path the routes, the stencil build
+   the byte rule picks (whole / K-chunked / planes) and its wall, and
+   whether the coefficient windows are cut per chunk; the whole,
+   K-chunked and plane-chunked builds against each other on the
+   4096-patch elasticity basis (1e-5) and the float64 refine-3 one
+   (1e-12), each build's wall and memory; the kernels at the new shapes
+   against their plain versions (K6 at the l = 3 leaves, K2 on pivots of
+   the 343 and 1029 T, K3 / K7 at 343 / 1029 columns, K4 at (343, 32)
+   and (1029, 32)) and K6's / K3's float32 gates on every chunk of
+   l3-diffusion.  The el-kernels phase also reads K6's / K7's gates on
+   every chunk of the elasticity configuration with lognormal Lame
+   fields, and K8's on every chunk of the 4096-patch elasticity weig
+   step.
 
 Every path counts its kernel launches from 0, set just before its first
 call and read just after its last; each K4 row's device time per step of
@@ -162,6 +182,7 @@ true, "device": {...}}``.  No JAX is imported.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -173,7 +194,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "el-kernels", "e2e-f64", "jacobi",
           "main", "weig", "elasticity", "run", "routes", "reaction",
-          "monte-carlo")
+          "monte-carlo", "scale")
 # H100 SXM: float32 outside the tensor cores, float64 on them (DMMA)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
@@ -261,7 +282,22 @@ PATH_KERNELS = {
     "monte-carlo": _MAIN,
     "monte-carlo-random": _MAIN,
     "sweep-f32": _MAIN,
+    # the scale phase: refine-5 on the main and the elasticity routes; l = 3
+    # diffusion on the Schur split (K6 leaves at C = 1) and l = 3
+    # elasticity on the per-patch Cholesky solve (no K1 / K6); their
+    # float64 twins on the eigh stage skip K4 / K5
+    "r5-diffusion": _MAIN,
+    "r5-diffusion-f64": _MAIN,
+    "r5-elasticity": _ELASTIC,
+    "l3-diffusion": _MAIN[1:] + ("K6 spd_multirhs_solve",),
+    "l3-diffusion-eigh-f64": ("K2 gj_inverse", "K3 stencil_trace",
+                              "K6 spd_multirhs_solve"),
+    "l3-elasticity-r3": ("K2 gj_inverse", "K4 mgs_qr", "K5 jacobi_eigh",
+                         "K7 stencil_trace"),
+    "l3-elasticity-r3-eigh-f64": ("K2 gj_inverse", "K7 stencil_trace"),
 }
+# float64 with the float32 path's smallk choices: the path's own kernels
+PATH_KERNELS["r5-diffusion-f64-f32-rule"] = _MAIN
 # the main path's launches a step (32 chunks of 128 patches)
 MAIN_LAUNCHES = {"K1 fused_spd_multirhs": 32, "K2 gj_inverse": 64,
                  "K3 stencil_trace": 64, "K4 mgs_qr": 96,
@@ -765,18 +801,18 @@ def k8_sweep_report(name, make, sweeps, tol, dtypes=("float32", "float64")):
     print(f"[kernels] {name}: sweeps per matrix: " + "; ".join(parts))
 
 
-def k8_gate_all_chunks(sweeps, tol):
+def k8_gate_all_chunks(sweeps, tol, cfg=None, elastic=False, label="weig"):
     """K8's float32 gate (error against the float64 plain version <= 4x the
     float32 plain version's + 1e-6, ``k5_err``) on the real ZT / YT of
-    every chunk of the float32 weig path, recorded from one step of that
-    path (the float64 plain version runs on them cast to float64); beside
-    it, per chunk, the sweeps each matrix ran in the kernel, the float32
-    and the float64 plain versions (block=1).  Prints the worst
-    error-to-gate ratio and the count differences; fails where a ratio
-    exceeds 1."""
+    every chunk of a float32 weig step (default the weig path's; ``cfg``
+    and ``elastic`` name another), recorded from one step (the float64
+    plain version runs on them cast to float64); beside it, per chunk, the
+    sweeps each matrix ran in the kernel, the float32 and the float64
+    plain versions (block=1).  Prints the worst error-to-gate ratio and
+    the count differences; fails where a ratio exceeds 1."""
     import torch
     from dealii_slod_tpu_torch.ops import eig
-    s = make_solver(bench_cfg("float32", smallk_weig=True), False)
+    s = make_solver(cfg or bench_cfg("float32", smallk_weig=True), elastic)
     s.assemble_fine_rhs()
     step = s.build_step()
     seen, weig = [], eig.weig
@@ -812,16 +848,16 @@ def k8_gate_all_chunks(sweeps, tol):
             diff_k64 += int((kc != p64).sum())
         diff_32_64 += int((p32 != p64).sum())
         n_mat += len(p32)
-    print(f"[kernels] K8 weig: float32 gate on every chunk of the weig path "
-          f"({len(seen)} chunks, {n_mat} W): worst error / gate "
+    print(f"[kernels] K8 weig: float32 gate on every chunk of the {label} "
+          f"step ({len(seen)} chunks, {n_mat} W): worst error / gate "
           f"{worst[0]:.4f} at chunk {worst[1]} (err {worst[2]:.3e}, gate "
           f"{worst[3]:.3e}); sweeps per matrix: the kernel differs from the "
           f"float32 plain version on {diff_k32} W and from the float64 one "
           f"on {diff_k64}, the two plain versions on {diff_32_64}")
     check(len(seen) == -(-s.topo.n_patches // s.cfg.patch_chunk),
-          f"K8 weig: {len(seen)} chunks recorded from the weig path")
+          f"K8 weig: {len(seen)} chunks recorded from the {label} step")
     check(worst[0] <= 1.0, f"K8 weig: float32 error over the gate at chunk "
-          f"{worst[1]}")
+          f"{worst[1]} of the {label} step")
 
 
 def check_case(table, card, name, shape, make, kern, plain, err, bound, lib,
@@ -1285,6 +1321,29 @@ def split_leaf_operands(A, B, nb):
     return patch_solve.fused_spd_multirhs_split(A, B, nb=nb, leaf=record), ops
 
 
+def lognormal_elasticity_gates():
+    """K6's and K7's float32 gates on every chunk of the 4096-patch
+    elasticity configuration with lognormal Lame fields (two samples of
+    the device sampler at the Monte-Carlo script's refinement 4 and
+    contrast 1e2, the field family PR 13 read K1 on)."""
+    import torch
+    from dealii_slod_tpu_torch.examples import monte_carlo
+    from dealii_slod_tpu_torch.models.coefficients import (
+        lognormal_lattice_batch)
+    t0 = time.perf_counter()
+    refine = int(MC_ENV["MC_COEF_REFINE"])
+    s = make_solver(elastic_cfg("float64", eig_solver="smallk"), True)
+    idx = monte_carlo.lattice_index(s.qpts, refine, "cuda")
+    lam, mu = lognormal_lattice_batch(
+        torch.Generator(device="cuda").manual_seed(3), 2, refine, 3, 1.0,
+        1e2, device="cuda")
+    s.coef_q = {"lam": lam[idx], "mu": mu[idx]}
+    print("[kernels] K6 / K7 float32 gates on every chunk of the elasticity "
+          "configuration with lognormal lam / mu:")
+    f32_gate_all_chunks(s, s._uniform_tables(), "K6 spd_multirhs_solve")
+    print(f"[kernels]   ({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_el_kernels(card):
     """On the middle 128-patch chunk of the 3D elasticity configuration:
     K6 at each split leaf, K7, K2 on a real pivot of T and of G + delta I,
@@ -1339,6 +1398,7 @@ def phase_el_kernels(card):
                      "bound_ms_3xtf32")
     del leaves
     f32_gate_all_chunks(s, tab, "K6 spd_multirhs_solve")
+    lognormal_elasticity_gates()
     k7_lib = trace_spmm(band.float(), nNp, tab.shiftN, tab.offs_flat)
     check_case(
         table, card, "K7 stencil_trace",
@@ -1460,6 +1520,8 @@ def phase_el_kernels(card):
         path="elasticity-r3-weig-f32")
     k8_sweep_report(name, lambda dt: (ZT.to(dt), YT.to(dt)), sw, st)
     del ZT, YT
+    k8_gate_all_chunks(sw, st, elastic_cfg("float32", smallk_weig=True),
+                       True, "4096-patch elasticity weig")
 
     k64, Gj, X_it, W_all, Z = smallk_operands(torch.float64, 1e-13)
     ZT = Z.mT.contiguous()
@@ -1679,11 +1741,13 @@ def run_path(path, cfg, timed, profile=False, elastic=False,
     first, walls = nums["walls"][0], nums["walls"][1:]
     wall = min(walls) if walls else first
     res = s.coarse_cg
+    coarse = ("direct coarse solve" if res is None else
+              f"CG {int(res.n_iter)} it converged {bool(res.converged)}")
     print(f"[{path}] {P} patches C={s.C} {cfg.dtype} (patch solver "
           f"{s.solver_mode}, spectral stage {s.spec_mode}): "
           f"{P / wall:.1f} patches/s; first call {first:.3f} s; steady wall "
-          f"{wall:.3f} s (calls {walls}); peak {peak / 2**30:.2f} GiB; CG "
-          f"{int(res.n_iter)} it converged {bool(res.converged)}")
+          f"{wall:.3f} s (calls {walls}); peak {peak / 2**30:.2f} GiB; "
+          f"{coarse}")
     if s.solver_mode == "fused_split":
         from dealii_slod_tpu_torch.ops.patch_solve import split_leaves
         tab = s._tables
@@ -1692,7 +1756,8 @@ def run_path(path, cfg, timed, profile=False, elastic=False,
               f"count above holds the run to their number): {rule}")
     check(bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0,
           f"{path}: u is not finite and non-zero")
-    check(bool(res.converged), f"{path}: coarse CG did not converge")
+    check(res is None or bool(res.converged),
+          f"{path}: coarse CG did not converge")
     if profile:
         profile_step(path, step, s)
     return s, dict(counts=nums["counts"], per_step=nums["per_step"],
@@ -2596,6 +2661,378 @@ def phase_monte_carlo(card):
     return paths
 
 
+def scale_paths():
+    """The scale phase's paths: name -> (configuration, elasticity, its
+    float64 twin (None: none) and the bound on their prolonged fields,
+    each coarse system solved exactly (None: printed, not held), the patch
+    solver and spectral stage the rules must pick, the stencil plan, and
+    whether the coefficient windows are cut per chunk).
+
+    At refine-5 the float32 and float64 smallk stages part by more than
+    rounding: float32 regularizes the Grams by 1e-6 of their largest
+    diagonal entry and keeps 32 directions, float64 by 1e-13 with all of
+    them (both the reference's rule), and the two bases part by 1.76e-2
+    at 32768 patches (2.4e-3 at 4096).  That path is held instead to
+    float64 with the float32 choices (``f32_spectral_rule``) within
+    1e-2.  The l = 3 twins solve their coarse systems directly: the
+    float64 eigh stage's l = 3 elasticity operator did not converge in
+    the bench's 500 CG steps."""
+    r5 = dict(n_global_refinements=5)
+    l3 = dict(oversampling=3, coarse_solve="direct")
+    l3e = dict(n_global_refinements=3, oversampling=3, patch_chunk=32)
+    return {
+        # BASELINE.json configs[3]: 3D Poisson, 32^3 coarse cells
+        "r5-diffusion": (bench_cfg("float32", **r5), False,
+                         bench_cfg("float64", eig_solver="smallk", **r5),
+                         None, ("fused", "smallk"), ("cells", 4), True),
+        # VERDICT missing #2: refine-5 3D elasticity
+        "r5-elasticity": (elastic_cfg("float32", **r5), True, None, None,
+                          ("fused_split", "smallk"), ("planes", 1, 1), True),
+        "l3-diffusion": (bench_cfg("float32", oversampling=3), False,
+                         bench_cfg("float64", eig_solver="lapack", **l3),
+                         1e-2, ("fused_split", "smallk"), ("cells", 3),
+                         True),
+        # BASELINE.json configs[4] at one card's scale
+        "l3-elasticity-r3": (elastic_cfg("float32", **l3e), True,
+                             elastic_cfg("float64", eig_solver="lapack",
+                                         **dict(l3e, **l3)),
+                             1e-2, ("lax", "smallk"), ("cells", 4), False),
+    }
+
+
+def timed_build(fn):
+    """``fn()`` (a coarse-operator build) on the card -> (result, wall s,
+    the peak it allocated beyond what was live before it)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def plan_text(plan):
+    return ("whole" if plan == ("cells", 1) else
+            f"K-chunked {plan[1]}" if plan[0] == "cells" else
+            f"planes {plan[1]} x {plan[2]} z-planes a chunk")
+
+
+def build_variants(label, s, tol, card):
+    """The coarse operator of solver ``s``'s basis by the whole build, the
+    K-chunked one (4 chunks) and the plane-chunked one at a 1-byte budget
+    and at one that gives two phi planes a chunk (a partial tail): each
+    against the whole build (relative max difference <= ``tol``), with
+    its wall and the memory it allocated."""
+    from dealii_slod_tpu_torch.models import stencil
+    P, C, cfg = s.topo.n_patches, s.C, s.cfg
+    Phi, APhi = s.Phi, s.APhi
+    tab = s._stencil_tables
+    item = Phi.element_size()
+    kappa, dim, O = tab["kappa"], tab["dim"], tab["O"]
+    two = 4 * P * 2 * kappa ** (dim - 1) * O * C * C * item
+    builds = {
+        "whole": lambda: stencil.stencil_build_cells(Phi, APhi, tab, 1),
+        "K-chunked 4": lambda: stencil.stencil_build_cells(Phi, APhi, tab,
+                                                           4),
+        "planes, budget 1 B": lambda: stencil.stencil_build_cells_planes(
+            Phi, APhi, tab, 1),
+        f"planes, budget {two} B": lambda: stencil.stencil_build_cells_planes(
+            Phi, APhi, tab, two)}
+    chunks = {"planes, budget 1 B": stencil.planes_chunks(
+        P, C * C, kappa, dim, O, item, 1),
+        f"planes, budget {two} B": stencil.planes_chunks(
+            P, C * C, kappa, dim, O, item, two)}
+    plan = stencil.stencil_plan(cfg, P, C, item)
+    ref = None
+    for name, fn in builds.items():
+        A, wall, peak = timed_build(fn)
+        e = 0.0 if ref is None else rel(A, ref)
+        ref = A if ref is None else ref
+        extra = f" (zk x zm {chunks[name]})" if name in chunks else ""
+        print(f"[scale] {label} build {name}{extra}: {wall:.3f} s, "
+              f"{peak / 2**30:.2f} GiB allocated; vs whole {e:.3e} "
+              f"(<= {tol:g}) [{card}]")
+        check(e <= tol, f"{label}: the {name} build disagrees with the "
+              "whole one")
+        del A
+    print(f"[scale] {label}: the rule picks {plan_text(plan)}")
+
+
+def scale_kernel_rows(card):
+    """The kernels the scale paths launch at shapes no other phase holds,
+    against their plain versions on one chunk's real operands (float64
+    basis chunk at the middle of the patch range): on l3-diffusion K6 at
+    each leaf of the split, K2 on T's first 128-pivot (T 343 x 343), K3
+    at 343 columns and K4 at (343, 32); on l3-elasticity-r3 K2 on T's
+    first pivot (T 1029 x 1029), K7 at 1029 columns and K4 at (1029,
+    32).  Returns the rows."""
+    import torch
+    from dealii_slod_tpu_torch.models import basis
+    from dealii_slod_tpu_torch.ops import assembly, eig, patch_solve
+    table, f4 = [], 4
+    k3 = {"l3-diffusion": (bench_cfg("float64", eig_solver="smallk",
+                                     oversampling=3), False),
+          "l3-elasticity-r3": (elastic_cfg(
+              "float64", eig_solver="smallk", n_global_refinements=3,
+              oversampling=3, patch_chunk=32), True)}
+    for path, (cfg, elastic) in k3.items():
+        s = make_solver(cfg, elastic)
+        tab = s._uniform_tables()
+        chunk = cfg.patch_chunk
+        _, nlo, nhi, sides = s._uniform_inputs()
+        p0 = (s.topo.n_patches // 2 // chunk) * chunk
+        sel = slice(p0, p0 + chunk)
+        cw = {k: basis.coef_windows(cfg, s.grid, s.coef_q[k])[sel]
+              for k in tab.coef_names}
+        lo, hi, sd = (torch.as_tensor(a[sel], device="cuda")
+                      for a in (nlo, nhi, sides))
+        band, A, PT_m, cvd = basis.prep(tab, cw, lo, hi)
+        B, C, cD, nN = band.shape[0], tab.C, tab.cD, tab.n_nodes
+        print(f"[scale] {path} chunk of patches {p0}..{p0 + chunk - 1}: A "
+              f"({B}, {A.shape[-1]}, {A.shape[-1]}), PT ({B}, "
+              f"{PT_m.shape[1]}, {PT_m.shape[2]}), patch solver "
+              f"{s.solver_mode}")
+        if s.solver_mode == "fused_split":
+            (X64, Traw), leaves = split_leaf_operands(A, PT_m, tab.panel_nb)
+            for i, (a, b) in enumerate(leaves):
+                n, k = a.shape[-1], b.shape[-1]
+                work = (B * (n ** 3 / 3 + 2 * n * n * k),
+                        B * f4 * (n * n + 2 * n * k))
+                check_case(
+                    table, card, f"K6 spd_multirhs_solve [l3 leaf {i + 1}]",
+                    f"A ({B}, {n}, {n}), B ({B}, {n}, {k})",
+                    lambda dt, a=a, b=b: (a.to(dt), b.to(dt)),
+                    patch_solve.spd_multirhs_solve,
+                    patch_solve.spd_multirhs_solve_plain, rel,
+                    lambda a_, w=work: by(*w),
+                    lambda a, b: torch.linalg.solve(a, b), path=path)
+                second_bound(table[-1], card, *work, "bound_ms_3xtf32")
+            del leaves
+        else:
+            X64, Traw = patch_solve.fused_spd_multirhs_plain(A, PT_m)
+        del A
+        T = Traw / tab.Hdim + torch.diag_embed(1.0 - cvd)
+        piv = T[:, :patch_solve.GJ_PAD, :patch_solve.GJ_PAD].contiguous()
+        m = piv.shape[-1]
+        check_case(
+            table, card, f"K2 gj_inverse [T pivot, cD {cD}]",
+            f"first pivot of T ({B}, {m}, {m}) (T {tuple(T.shape)})",
+            lambda dt: (piv.to(dt),), patch_solve.gj_inverse,
+            patch_solve.gj_inverse_plain, rel,
+            lambda a: by(B * 2 * m ** 3, B * f4 * 2 * m * m),
+            lambda a: torch.linalg.inv(a), path=path)
+        Xp = trace_operand(tab, X64)
+        kk, nNp, n_off = Xp.shape[-1], Xp.shape[2], len(tab.offs_flat)
+        kname = "K3 stencil_trace" if C == 1 else "K7 stencil_trace"
+        lib = trace_spmm(band.float(), nNp, tab.shiftN, tab.offs_flat)
+        check_case(
+            table, card, f"{kname} [l3]",
+            f"band ({B}, {nN}, {band.shape[2]}), X ({B}, {C}, {nNp}, {kk})",
+            lambda dt: (band.to(dt).contiguous(), Xp.to(dt).contiguous()),
+            lambda b, x: assembly.stencil_trace(b, x, tab.shiftN,
+                                                tab.offs_flat),
+            lambda b, x: assembly.stencil_trace_plain(b, x, tab.shiftN,
+                                                      tab.offs_flat),
+            rel,
+            lambda a: by(B * nN * kk * 2 * n_off * C * C,
+                         B * f4 * (nN * n_off * C * C + C * nNp * kk
+                                   + C * nN * kk)),
+            lib, path=path)
+        spmm_check(f"{kname} [l3]", lib, band, Xp, tab)
+        del lib, Xp
+        S99, is99d = basis.trace_S_chunk(tab, band, X64, lo, hi, sd)
+        del X64, band
+        Tinv = torch.linalg.inv(T)
+        G, _ = basis.finish_pre_from_S(tab, S99, Tinv, cvd, is99d)
+        del S99, T, Tinv
+        G = G.reshape(B * C, cD, cD)
+        BC = G.shape[0]
+        k = basis.smallk_k_eff(cD, torch.float32, s.cfg.smallk_dirs)
+        dmax = torch.diagonal(G, dim1=-2, dim2=-1).abs().amax(-1)
+        Gj = G + (1e-6 * torch.where(dmax > 0, dmax, 1.0))[:, None, None] \
+            * torch.eye(cD, dtype=G.dtype, device=G.device)
+        X_it = torch.linalg.solve(Gj, eig.smallk_start(
+            cD, k, G.dtype, G.device).expand(BC, cD, k).contiguous())
+        del G, Gj
+        check_case(
+            table, card, f"K4 mgs_qr [l3, n {cD}]",
+            f"X ({BC}, {cD}, {k}) = Ginv Z0",
+            lambda dt: (X_it.to(dt),), eig.mgs_qr, eig.mgs_qr_plain, None,
+            lambda a: by(BC * 4 * cD * k * k, BC * f4 * 2 * cD * k),
+            lambda x: torch.linalg.qr(x), path=path,
+            contract=lambda q, a: qr_contract_err(q, a[0]))
+        del X_it, s, cw
+        torch.cuda.empty_cache()
+    return table
+
+
+@contextlib.contextmanager
+def f32_spectral_rule():
+    """Inside the block a float64 solver's smallk stage makes the float32
+    path's choices: the Tikhonov jitter 1e-6 of max |diag G| and
+    ``smallk_dirs`` directions (float64 takes 1e-13 and all of them)."""
+    import torch
+    from dealii_slod_tpu_torch.models import basis
+    from dealii_slod_tpu_torch.ops import eig
+    k_eff, jitter = basis.smallk_k_eff, eig.JITTER[torch.float64]
+    basis.smallk_k_eff = lambda cD, dtype, dirs: k_eff(cD, torch.float32,
+                                                       dirs)
+    eig.JITTER[torch.float64] = eig.JITTER[torch.float32]
+    try:
+        yield
+    finally:
+        basis.smallk_k_eff, eig.JITTER[torch.float64] = k_eff, jitter
+
+
+def exact_field(s):
+    """The prolonged LOD field of solver ``s``'s last step with its coarse
+    system solved exactly: the step's A_st and basis in float64, a dense
+    Cholesky solve (no CG stop), on the card; returned on the host."""
+    import torch
+    from dealii_slod_tpu_torch.ops.solvers import cholesky_solve
+    Phi = s.Phi.double()
+    A = s.coarse_dense_matrix(s.A_stencil.double())
+    if len(A) <= s.cfg.coarse_dense_cap:
+        lam = torch.linalg.eigvalsh(A)
+        print(f"[exact solve] {s.cfg.dtype} coarse operator "
+              f"{tuple(A.shape)}: eigenvalues {float(lam[0]):.3e} .. "
+              f"{float(lam[-1]):.3e}, condition "
+              f"{float(lam[-1] / lam[0]):.3e}")
+    L = torch.linalg.cholesky(A)
+    del A
+    rhs = s._coarse_rhs(Phi, s.fem_rhs.double())
+    x = cholesky_solve(L, rhs.reshape(-1, 1)).reshape(rhs.shape)
+    del L
+    out = torch.zeros((s.grid.n_nodes, s.C), dtype=torch.float64,
+                      device=Phi.device)
+    out.index_add_(0, s.canvas_gidx.reshape(-1),
+                   torch.einsum("pncd,pd->pnc", Phi, x).reshape(-1, s.C))
+    return (out + s.fine_bc_values.double()).cpu()
+
+
+def scale_path(card, paths, path, cfg, elastic, twin, bound, route, plan,
+               per_chunk):
+    """One path of the scale phase (``scale_paths``), its numbers into
+    ``paths``: the step, its routes, the stencil build and the windows,
+    and the prolonged field, each coarse system solved exactly, against
+    the float64 twin (within ``bound``) or, where that is None, against
+    float64 with the float32 path's smallk choices
+    (``f32_spectral_rule``, within 1e-2)."""
+    import torch
+    from dealii_slod_tpu_torch.models import stencil
+    s, paths[path] = run_path(path, cfg, timed=1, elastic=elastic)
+    P, C = s.topo.n_patches, s.C
+    got = stencil.stencil_plan(cfg, P, C, s.Phi.element_size())
+    rows = s._window_chunk_rows(s.coef_q, P, cfg.patch_chunk)
+    _, wall, peak = timed_build(s.assemble_coarse_operator)
+    print(f"[{path}] stencil build: {plan_text(got)}, {wall:.3f} s, "
+          f"{peak / 2**30:.2f} GiB allocated; coefficient windows "
+          + (f"cut per chunk ({rows} x-rows a chunk)" if rows else "whole")
+          + f" [{card}]")
+    paths[path].update(stencil_build_s=wall, stencil_build_bytes=peak)
+    check((s.solver_mode, s.spec_mode) == route,
+          f"{path}: patch solver {s.solver_mode!r} and spectral stage "
+          f"{s.spec_mode!r}, not {route}")
+    check(got == plan and bool(rows) == per_chunk,
+          f"{path}: stencil build {got} and windows {rows}, not {plan} and "
+          f"{'per chunk' if per_chunk else 'whole'}")
+    check(paths[path]["peak_bytes"] < 80e9, f"{path}: peak over 80 GB")
+    if twin is None:
+        return
+    # each step's field and the same with its coarse system solved
+    # exactly, which takes the coarse CG's stop out of the comparison
+    field, ex = s.prolong_lod_solution().double().cpu(), exact_field(s)
+    del s
+    torch.cuda.empty_cache()
+    twin_path = path + ("-f64" if twin.eig_solver == "smallk"
+                        else "-eigh-f64")
+    s64, paths[twin_path] = run_path(twin_path, twin, timed=0,
+                                     elastic=elastic)
+    field64, ex64 = s64.prolong_lod_solution().cpu(), exact_field(s64)
+    del s64
+    torch.cuda.empty_cache()
+    e = rel(ex, ex64)
+    print(f"[{path}] prolonged fields, each coarse system solved exactly: "
+          f"f32 vs {twin_path} {e:.3e} ("
+          + ("not held" if bound is None else f"<= {bound:g}")
+          + f"); the steps' own fields "
+          f"(coarse CG, reduce {cfg.coarse_solver.reduce:g}, or the direct "
+          f"solve): {rel(field, field64):.3e}, each against its exact solve "
+          f"f32 {rel(field, ex):.3e}, f64 {rel(field64, ex64):.3e}")
+    if bound is not None:
+        check(e <= bound, f"{path}: f32 and {twin_path} prolonged fields "
+              "disagree")
+        return
+    rule_path = path + "-f64-f32-rule"
+    with f32_spectral_rule():
+        sr, paths[rule_path] = run_path(rule_path, dataclasses.replace(
+            cfg, dtype="float64", eig_solver="smallk"), timed=0,
+            elastic=elastic)
+        ex_rule = exact_field(sr)
+    del sr
+    torch.cuda.empty_cache()
+    e_rule = rel(ex, ex_rule)
+    print(f"[{path}] prolonged fields, each coarse system solved exactly: "
+          f"f32 vs {rule_path} {e_rule:.3e} (<= 1e-2); {rule_path} vs "
+          f"{twin_path} {rel(ex_rule, ex64):.3e}")
+    check(e_rule <= 1e-2, f"{path}: f32 and {rule_path} prolonged fields "
+          "disagree")
+
+
+def phase_scale(card):
+    """The JAX package's largest configurations through
+    ``LODSolver(cfg, problem).build_step()``: refine-5 diffusion and
+    elasticity (32768 patches), l = 3 diffusion (4096 patches) and l = 3
+    elasticity at refine-3 (512 patches); for each the routes, the stencil
+    build the byte rule picks and its wall, the per-chunk coefficient
+    windows, and the prolonged field against a float64 twin; the three
+    builds on the 4096-patch elasticity basis and the float64 refine-3
+    one; the kernel rows at the new shapes and K6's float32 gate on every
+    chunk of l3-diffusion.  Returns (rows, per-path numbers)."""
+    import torch
+    paths, t_phase, failed = {}, time.perf_counter(), []
+    for path, args in scale_paths().items():
+        t0 = time.perf_counter()
+        try:
+            scale_path(card, paths, path, *args)
+        except PhaseError as exc:
+            # the other paths still run; the phase fails at its end
+            print(f"[{path}] FAILED: {exc}")
+            failed.append(str(exc))
+        torch.cuda.empty_cache()
+        print(f"[{path}] {time.perf_counter() - t0:.1f} s")
+    # the builds where the whole one still fits
+    for label, cfg, tol in (
+            ("elasticity (4096 patches, f32)", elastic_cfg("float32"), 1e-5),
+            ("elasticity refine-3 (512 patches, f64)", elastic_cfg(
+                "float64", n_global_refinements=3, eig_solver="smallk"),
+             1e-12)):
+        s = make_solver(cfg, True)
+        s.compute_basis()
+        s.assemble_coarse_operator()
+        try:
+            build_variants(label, s, tol, card)
+        except PhaseError as exc:
+            print(f"[scale] FAILED: {exc}")
+            failed.append(str(exc))
+        del s
+        torch.cuda.empty_cache()
+    table = scale_kernel_rows(card)
+    t0 = time.perf_counter()
+    sg = make_solver(bench_cfg("float64", eig_solver="smallk",
+                               oversampling=3), False)
+    print("[scale] K6 / K3 float32 gates on every chunk of l3-diffusion:")
+    f32_gate_all_chunks(sg, sg._uniform_tables(), "K6 spd_multirhs_solve")
+    del sg
+    print(f"[scale]   ({time.perf_counter() - t0:.1f} s)")
+    print(f"[scale] phase done in {time.perf_counter() - t_phase:.1f} s")
+    check(not failed, "; ".join(failed))
+    return table, paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2661,6 +3098,10 @@ def main():
             paths.update(more)
         if "monte-carlo" in phases:
             paths.update(phase_monte_carlo(card))
+        if "scale" in phases:
+            rows, more = phase_scale(card)
+            table += rows
+            paths.update(more)
     except Exception as exc:                     # any phase failure
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr)

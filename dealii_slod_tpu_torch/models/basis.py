@@ -61,6 +61,10 @@ from dealii_slod_tpu_torch.ops.patch_solve import (fused_spd_multirhs,
                                                    panel_spd_multirhs,
                                                    spd_inverse_schur)
 
+# coefficient windows of one coefficient beyond this size are cut per chunk
+# under ``window_chunk="auto"`` (the reference's _WINDOW_SLAB_BYTES)
+WINDOW_SLAB_BYTES = 256 * 2 ** 20
+
 
 def smallk_k_eff(cD: int, dtype: torch.dtype, smallk_dirs: int) -> int:
     """Direction count of the smallk spectral stage: all directions for
@@ -411,13 +415,63 @@ def window_stack(X, win: int, s: int, ell: int):
     strided unfold per axis)."""
     dim = X.dim() - 1
     pad = ell * s
-    Xp = F.pad(X, (0, 0) + (pad, pad) * dim)
+    return _unfold_windows(F.pad(X, (0, 0) + (pad, pad) * dim), win, s)
+
+
+def _unfold_windows(Xp, win: int, s: int):
+    """The size-``win`` windows at stride ``s`` of the padded lattice Xp
+    (n_1, ..., n_dim, tail) -> (windows, win^dim, tail), x fastest."""
+    dim = Xp.dim() - 1
+    tail = Xp.shape[-1]
     for a in range(dim):
         Xp = Xp.unfold(a, win, s)      # (.., n_a, .., tail, w_0 .. w_a)
     Xp = Xp.permute(tuple(range(dim)) + tuple(range(dim + 1, 2 * dim + 1))
                     + (dim,))
     P = int(np.prod(Xp.shape[:dim]))
-    return Xp.reshape(P, win ** dim, X.shape[-1])
+    return Xp.reshape(P, win ** dim, tail)
+
+
+def coef_lattice(cfg, grid, coef):
+    """The zero-padded fine-cell coefficient lattice (grid_1 + 2p, ...,
+    grid_dim + 2p, nq), p = l s: the source of ``window_stack_chunk``."""
+    pad = cfg.oversampling * cfg.n_subdivisions
+    X = coef.reshape(_rev(grid.fine_cell_dims) + (coef.shape[-1],))
+    return F.pad(X, (0, 0) + (pad, pad) * cfg.dim)
+
+
+def window_chunk_rows(cfg, B: int, n_chunks: int):
+    """Patch x-rows per chunk where each of ``n_chunks`` equal chunks of
+    the B lex-ordered patches covers whole consecutive x-rows of the full
+    patch lattice, without straddling a z-plane in 3D; else None."""
+    N = cfg.n_coarse
+    if cfg.dim < 2 or B != N ** cfg.dim or n_chunks <= 1:
+        return None
+    chunk, rem = divmod(B, n_chunks)
+    if rem or chunk % N:
+        return None
+    R = chunk // N
+    if cfg.dim == 3 and N % R:
+        return None
+    return R
+
+
+def window_stack_chunk(Xpad, chunk_idx: int, R: int, win: int, s: int):
+    """The coefficient windows of chunk ``chunk_idx`` of ``R`` patch
+    x-rows (``window_chunk_rows``), cut from the padded lattice Xpad
+    (``coef_lattice``) -> (R N, win^dim, tail): the rows of
+    ``coef_windows`` for those patches, bit for bit (the same unfold on
+    the chunk's sub-lattice)."""
+    dim = Xpad.dim() - 1
+    nx = Xpad.shape[-2]
+    if dim == 2:
+        y0 = chunk_idx * R
+        sub = Xpad[y0 * s:y0 * s + s * (R - 1) + win]
+    else:
+        rows = chunk_idx * R
+        N = (nx - win) // s + 1
+        z0, y0 = rows // N, rows % N
+        sub = Xpad[z0 * s:z0 * s + win, y0 * s:y0 * s + s * (R - 1) + win]
+    return _unfold_windows(sub, win, s)
 
 
 def coef_windows(cfg, grid, coef):

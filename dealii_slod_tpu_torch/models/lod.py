@@ -123,7 +123,12 @@ def patch_solver_mode(cfg: SLODConfig, C: int, sc: ShapeClass) -> str:
 
 def check_supported(cfg: SLODConfig, problem, device: torch.device) -> None:
     """Refuse what the port does not implement; warn on the TPU variants
-    of a kernel's contract (K9), which run on that contract's kernel."""
+    of a kernel's contract (K9), which run on that contract's kernel.
+
+    ``chunk_scan`` picks the reference's dispatch of the chunk loop (one
+    ``lax.scan``, or a Python loop of jitted chunks); the port's chunk
+    loop is a host loop at either value, which is what
+    ``chunk_scan=False`` runs."""
     C = problem.n_components
     if C not in (1, cfg.dim):
         raise NotImplementedError(f"C = {C} components in {cfg.dim}D: the "
@@ -376,31 +381,65 @@ class LODSolver:
             gsub, nlo_t, nhi_t, sides_t = self._uniform_inputs_t()
         else:
             gsub, nlo_t, nhi_t, sides_t, inv = dedup
-        cw = {k: (basis.coef_windows(self.cfg, self.grid, coefs[k])
-                  if gsub is None else coefs[k][gsub])
-              for k in self.coef_names}
         B, C = len(nlo_t), self.C
+        step = self.cfg.patch_chunk or B
+        rows = (self._window_chunk_rows(coefs, B, step) if gsub is None
+                else None)
+        if rows is not None:
+            lattices = {k: basis.coef_lattice(self.cfg, self.grid, coefs[k])
+                        for k in self.coef_names}
+            win = (2 * self.cfg.oversampling + 1) * self.cfg.n_subdivisions
+
+            def windows(lo, hi):
+                return {k: basis.window_stack_chunk(
+                    L, lo // step, rows, win, self.cfg.n_subdivisions)
+                    for k, L in lattices.items()}
+        else:
+            cw = {k: (basis.coef_windows(self.cfg, self.grid, coefs[k])
+                      if gsub is None else coefs[k][gsub])
+                  for k in self.coef_names}
+
+            def windows(lo, hi):
+                return {k: v[lo:hi] for k, v in cw.items()}
         Phi = torch.empty((B, self.canvas_n, C, C), dtype=self.dtype,
                           device=self.device)
         APhi = torch.empty_like(Phi)
-        step = self.cfg.patch_chunk or B
         for lo in range(0, B, step):
             hi = min(B, lo + step)
             Phi[lo:hi], APhi[lo:hi] = basis.uniform_chunk(
-                tab, {k: v[lo:hi] for k, v in cw.items()}, nlo_t[lo:hi],
-                nhi_t[lo:hi], sides_t[lo:hi])
+                tab, windows(lo, hi), nlo_t[lo:hi], nhi_t[lo:hi],
+                sides_t[lo:hi])
         if dedup is not None:
             Phi, APhi = Phi[inv], APhi[inv]
         self.Phi, self.APhi = Phi, APhi
         self.basis_patches = B
         return Phi, APhi
 
+    def _window_chunk_rows(self, coefs, B: int, step: int):
+        """Patch x-rows per chunk when each chunk's coefficient windows
+        are cut from the padded lattice in the chunk loop (the reference's
+        gate, ``models/lod.py``'s in-body window extraction), else None:
+        ``window_chunk`` "off" never, "on" whenever the chunks tile whole
+        x-rows (``basis.window_chunk_rows``), "auto" then only where the
+        whole windows of some coefficient would exceed 256 MiB."""
+        mode = self.cfg.window_chunk
+        if mode == "off" or B % step:
+            return None
+        rows = basis.window_chunk_rows(self.cfg, B, B // step)
+        if rows is None or mode != "auto":
+            return rows
+        win = (2 * self.cfg.oversampling + 1) * self.cfg.n_subdivisions
+        full = max(B * win ** self.cfg.dim * coefs[k].shape[-1]
+                   * coefs[k].element_size() for k in self.coef_names)
+        return rows if full > basis.WINDOW_SLAB_BYTES else None
+
     def _stencil_build(self, Phi, APhi):
         if self._stencil_tables is None:
             self._stencil_tables = stencil.stencil_tables(
                 self.cfg, self.grid, self.canvas_dims, self.stencil_offsets,
                 self.device, self.dtype)
-        return stencil.stencil_build_cells(Phi, APhi, self._stencil_tables)
+        return stencil.stencil_build(Phi, APhi, self._stencil_tables,
+                                     self.cfg, self.dtype)
 
     @_full_f32
     def assemble_coarse_operator(self):

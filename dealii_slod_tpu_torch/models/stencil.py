@@ -79,11 +79,16 @@ def shift_index(N: int, dim: int, ell: int, slot_dims: int, sign: int,
             torch.as_tensor(valid, dtype=dtype, device=device))
 
 
-def shift_slots(X, index):
-    """Apply a ``shift_index`` gather to X (E, slots, rest...)."""
+def shift_slots(X, index, lo: int = 0):
+    """Apply a ``shift_index`` gather to X (E, slots, rest...) whose slot
+    axis holds the slots ``lo .. lo + X.shape[1] - 1`` of the index's
+    slot grid: the slot base of a chunk of slots (``_shift_slots_flat``'s
+    ``slot_base``)."""
     src, valid = index
-    k = torch.arange(X.shape[1], device=X.device)[None, :]
-    return X[src, k] * valid[(...,) + (None,) * (X.dim() - 2)]
+    n = X.shape[1]
+    src, valid = src[:, lo:lo + n], valid[:, lo:lo + n]
+    k = torch.arange(n, device=X.device)[None, :]
+    return X[src, k].mul_(valid[(...,) + (None,) * (X.dim() - 2)])
 
 
 def stencil_tables(cfg, grid, canvas_dims, stencil_offsets, device,
@@ -93,7 +98,7 @@ def stencil_tables(cfg, grid, canvas_dims, stencil_offsets, device,
     tab = cell_tables(cfg, grid, canvas_dims, stencil_offsets)
     N, dim, ell = cfg.n_coarse, cfg.dim, cfg.oversampling
     kappa = 2 * ell + 1
-    out = dict(K=tab["K"], K2=tab["K2"], O=tab["O"])
+    out = dict(K=tab["K"], K2=tab["K2"], O=tab["O"], dim=dim, kappa=kappa)
     for w in ("1", "2"):
         out["cnode" + w] = torch.as_tensor(tab["cnode" + w].reshape(-1),
                                            device=device)
@@ -102,6 +107,8 @@ def stencil_tables(cfg, grid, canvas_dims, stencil_offsets, device,
     out["own"] = torch.as_tensor(tab["own"], dtype=dtype, device=device)
     out["shift1"] = shift_index(N, dim, ell, kappa, 1, device, dtype)
     out["shift2"] = shift_index(N, dim, ell, kappa + 1, 1, device, dtype)
+    # the patch-row read G2[q, k] = T[e(q, k), k], e = q + ks[k] - ell
+    # (the reference's e_idx / evalid)
     out["shift_rows"] = shift_index(N, dim, ell, kappa, -1, device, dtype)
     out["M3"] = torch.as_tensor(
         slot_match_matrix(tab, len(stencil_offsets)), dtype=dtype,
@@ -109,7 +116,71 @@ def stencil_tables(cfg, grid, canvas_dims, stencil_offsets, device,
     return out
 
 
-def stencil_build_cells(Phi, APhi, tab: dict):
+def stencil_plan(cfg, P: int, C: int, item: int) -> tuple:
+    """The reference's choice of build (``_stencil_build``), from shapes:
+    ("planes", zk, zm) when the whole side tables, P (K + K2) O C^2 items,
+    exceed ``cfg.stencil_side_budget_mb`` MiB, else ("cells", n_chunks)
+    with the (P, K, K2, C, C) intermediate cut into ~1 GiB K chunks."""
+    dim, kappa = cfg.dim, 2 * cfg.oversampling + 1
+    K, K2 = kappa ** dim, (kappa + 1) ** dim
+    O = (cfg.n_subdivisions + 1) ** dim
+    CC = C * C
+    budget = cfg.stencil_side_budget_mb * (1 << 20)
+    if P * (K + K2) * O * CC * item > budget:
+        return ("planes",) + planes_chunks(P, CC, kappa, dim, O, item,
+                                           budget)
+    t_bytes = P * K * K2 * CC * item
+    return ("cells", min(K, max(1, -(-t_bytes // (1 << 30)))))
+
+
+def planes_chunks(P: int, CC: int, kappa: int, dim: int, O: int, item: int,
+                  budget_bytes: int) -> tuple:
+    """Slot z-planes per chunk (zk of the phi side, zm of the A phi
+    side) of the plane-chunked build: each side's chunk within a quarter
+    of the budget, their (P, zk plane1, zm plane2, C, C) product within
+    half of it (``_stencil_build_cells_planes``'s caps)."""
+    plane1, plane2 = kappa ** (dim - 1), (kappa + 1) ** (dim - 1)
+
+    def planes_within(n_planes, per_plane_bytes):
+        cap = max(1, int(budget_bytes // 4 // max(1, per_plane_bytes)))
+        return min(n_planes, cap)
+
+    zk = planes_within(kappa, P * plane1 * O * CC * item)
+    zm = planes_within(kappa + 1, P * plane2 * O * CC * item)
+    while zk * zm > 1 and (P * zk * plane1 * zm * plane2 * CC * item
+                           > budget_bytes // 2):
+        if zk >= zm and zk > 1:
+            zk -= 1
+        elif zm > 1:
+            zm -= 1
+        else:
+            break
+    return zk, zm
+
+
+def stencil_build(Phi, APhi, tab: dict, cfg, dtype):
+    """The coarse operator (P, S, C, C) by the build ``stencil_plan``
+    picks for these shapes: the reference's rule to the byte, so both
+    packages take the same branch on every configuration."""
+    P, C = Phi.shape[0], Phi.shape[-1]
+    plan = stencil_plan(cfg, P, C, torch.finfo(dtype).bits // 8)
+    if plan[0] == "planes":
+        return stencil_build_cells_planes(
+            Phi, APhi, tab, cfg.stencil_side_budget_mb * (1 << 20))
+    return stencil_build_cells(Phi, APhi, tab, n_chunks=plan[1])
+
+
+def _side_table(X, tab, which, shift):
+    """Canvas picks of side ``which`` ("1": the K phi slots, "2": the K2
+    A phi slots) aligned onto the cell lattice: X (P, nN, C, C) ->
+    (E, slots, O C C)."""
+    P, C = X.shape[0], X.shape[-1]
+    Y = (X.reshape(P, -1, C * C)[:, tab["cnode" + which]]
+         * tab["incv" + which][None, :, None])
+    return shift_slots(Y.reshape(P, -1, tab["O"] * C * C), tab[shift])
+
+
+def stencil_build_cells(Phi, APhi, tab: dict, n_chunks: int = 1):
     """Cell-decomposed stencil build (``_stencil_build_cells``) with the
     ``stencil_tables`` ``tab``, canvases (P, nN, C, C):
 
@@ -120,35 +191,87 @@ def stencil_build_cells(Phi, APhi, tab: dict):
     4. patch rows G2[q, k1] = T[q + (k1 - ell), k1],
     5. slot correlation as one 0/1 matmul -> A_st (P, S, C, C).
 
-    The (P, K C, K2 C) intermediate is built whole (the reference splits it
-    into ~1 GB pieces for its 16 GB card): the sums run in another order
-    and agree to rounding."""
+    Steps 3-5 run per contiguous chunk of ceil(K / n_chunks) phi slots and
+    add into A_st: the K axis is independent through steps 3-4 and the
+    indicator product sums over it, so neither T nor G2 is ever whole
+    (``n_chunks`` = 1 builds them whole; the sums agree to rounding)."""
     P, C = Phi.shape[0], Phi.shape[-1]
     K, K2, O = tab["K"], tab["K2"], tab["O"]
-
-    def side_table(X, which, shift):
-        Y = (X.reshape(P, -1, C * C)[:, tab["cnode" + which]]
-             * tab["incv" + which][None, :, None])
-        return shift_slots(Y.reshape(P, -1, O * C * C), tab[shift])
-
-    Pc = side_table(Phi, "1", "shift1")                    # (E, K, O C C)
+    Pc = _side_table(Phi, tab, "1", "shift1")              # (E, K, O C C)
     # owned-node mask on one side only (idempotent in the product)
-    Ac = side_table(APhi, "2", "shift2").reshape(P, K2, O, C * C) \
+    Ac = _side_table(APhi, tab, "2", "shift2").reshape(P, K2, O, C * C) \
         * tab["own"][:, None, :, None]
     # (e, k, o, c, d) -> (e, (k, d), (o, c)): the contraction is one bmm
     Pc = Pc.reshape(P, K, O, C, C).permute(0, 1, 4, 2, 3).reshape(
         P, K * C, O * C)
     Ac = Ac.reshape(P, K2, O, C, C).permute(0, 1, 4, 2, 3).reshape(
         P, K2 * C, O * C)
-    Tk = Pc @ Ac.mT                                        # (E, K d, K2 f)
-    del Pc, Ac
-    G2 = shift_slots(Tk.reshape(P, K, -1), tab["shift_rows"])
-    del Tk
-    # (q, k, d, m, f) -> (q, d, f, (k, m)) against the (K K2, S) indicator
-    G2 = G2.reshape(P, K, C, K2, C).permute(0, 2, 4, 1, 3).reshape(
-        P, C * C, K * K2)
-    A_st = G2 @ tab["M3"]                                  # (P, C C, S)
+    Kc = -(-K // max(1, n_chunks))
+    A_st = None
+    for k0 in range(0, K, Kc):
+        k1 = min(K, k0 + Kc)
+        Tk = Pc[:, k0 * C:k1 * C] @ Ac.mT                  # (E, Kc d, K2 f)
+        G2 = shift_slots(Tk.reshape(P, k1 - k0, -1), tab["shift_rows"], k0)
+        del Tk
+        # (q, k, d, m, f) -> (q, d, f, (k, m)) against the indicator rows
+        # of this K range (the flat row index (k, m) is k-major)
+        G2 = G2.reshape(P, k1 - k0, C, K2, C).permute(0, 2, 4, 1, 3) \
+            .reshape(P, C * C, (k1 - k0) * K2)
+        part = G2 @ tab["M3"][k0 * K2:k1 * K2]             # (P, C C, S)
+        del G2
+        A_st = part if A_st is None else A_st.add_(part)
     return A_st.mT.reshape(P, -1, C, C)
+
+
+def stencil_build_cells_planes(Phi, APhi, tab: dict, budget_bytes: int):
+    """Plane-chunked cells build (``_stencil_build_cells_planes``): the
+    algebra of ``stencil_build_cells``, with both side tables built and
+    consumed one range of slot z-planes at a time (the slowest slot axis:
+    a contiguous range of the flat slot index), so that no whole side
+    table exists; ``planes_chunks`` sizes the ranges.  The canvas nodes
+    are gathered once per (side, range), and the basis-column pairs
+    (d, f) are a loop.  Eager execution runs the ranges one after the
+    other and ``del`` frees each one's tables before the next: the
+    reference needs optimization barriers for that."""
+    P, C = Phi.shape[0], Phi.shape[-1]
+    CC = C * C
+    K, K2, O = tab["K"], tab["K2"], tab["O"]
+    dim, kappa = tab["dim"], tab["kappa"]
+    zk, zm = planes_chunks(P, CC, kappa, dim, O, Phi.element_size(),
+                           budget_bytes)
+    plane1, plane2 = kappa ** (dim - 1), (kappa + 1) ** (dim - 1)
+    S = tab["M3"].shape[-1]
+    M3 = tab["M3"].reshape(K, K2, S)
+    own_oc = tab["own"].repeat_interleave(C, dim=1)[:, None, :]  # (E,1,OC)
+    A_st = Phi.new_zeros((P, C, C, S))
+
+    def side(X, which, shift, lo, hi, col):
+        """(E, hi - lo, O C) table of basis column ``col`` from the
+        range's node gather X (P, (hi - lo) O, C, C)."""
+        Y = X[..., col] * tab["incv" + which][lo * O:hi * O][None, :, None]
+        return shift_slots(Y.reshape(P, hi - lo, O * C), tab[shift], lo)
+
+    for mz0 in range(0, kappa + 1, zm):
+        mlo, mhi = mz0 * plane2, min(kappa + 1, mz0 + zm) * plane2
+        Ac4 = APhi[:, tab["cnode2"][mlo * O:mhi * O]]
+        for kz0 in range(0, kappa, zk):
+            klo, khi = kz0 * plane1, min(kappa, kz0 + zk) * plane1
+            Pc4 = Phi[:, tab["cnode1"][klo * O:khi * O]]
+            pc = [side(Pc4, "1", "shift1", klo, khi, d) for d in range(C)]
+            del Pc4
+            M3blk = M3[klo:khi, mlo:mhi].reshape(-1, S)
+            for f in range(C):
+                Ac_f = side(Ac4, "2", "shift2", mlo, mhi, f).mul_(own_oc)
+                for d in range(C):
+                    Tk = pc[d] @ Ac_f.mT                   # (E, kc, mc)
+                    G2 = shift_slots(Tk, tab["shift_rows"], klo)
+                    del Tk
+                    A_st[:, d, f] += G2.reshape(P, -1) @ M3blk
+                    del G2
+                del Ac_f
+            del pc
+        del Ac4
+    return A_st.permute(0, 3, 1, 2).contiguous()
 
 
 def dense_placement(stencil_nbr: np.ndarray, stencil_valid: np.ndarray,

@@ -329,6 +329,11 @@ def jacobi_eigh(G: torch.Tensor, sweeps: int = 12, block: int = 16,
     return _finalize_rows(XT, XB, n0, batch_shape)
 
 
+# the Grams' regularization G + jitter max|diag G| I of the Jacobi and
+# smallk stages, by dtype (the reference's eig.py constants)
+JITTER = {torch.float32: 1e-6, torch.float64: 1e-13}
+
+
 def jacobi_eigh_factor(G: torch.Tensor, sweeps: int = 12, block: int = 16,
                        tol: float = 0.0, jitter: float | None = None,
                        null_rel: float | None = None):
@@ -337,7 +342,7 @@ def jacobi_eigh_factor(G: torch.Tensor, sweeps: int = 12, block: int = 16,
     (Demmel-Veselic: the sweeps see the square root of G's dynamic range).
     Returns (eigenvalues descending, eigenvectors as columns)."""
     if jitter is None:
-        jitter = 1e-13 if G.dtype == torch.float64 else 1e-6
+        jitter = JITTER[G.dtype]
     dmax = torch.diagonal(G, dim1=-2, dim2=-1).abs().amax(-1, keepdim=True)
     eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
     L, _ = torch.linalg.cholesky_ex(G + (jitter * dmax)[..., None] * eye)
@@ -543,7 +548,7 @@ def smallk_truncated_dvec(G: torch.Tensor, g0: torch.Tensor, k: int = 32,
     """
     B, n, _ = G.shape
     dt, dev = G.dtype, G.device
-    jitter = 1e-13 if dt == torch.float64 else 1e-6
+    jitter = JITTER[dt]
     dmax = torch.diagonal(G, dim1=-2, dim2=-1).abs().amax(-1)
     ok = dmax > 0
     delta = jitter * torch.where(ok, dmax, 1.0)
