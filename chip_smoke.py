@@ -169,7 +169,23 @@ Phases (each prints its numbers; any failure exits non-zero):
    l3-diffusion.  The el-kernels phase also reads K6's / K7's gates on
    every chunk of the elasticity configuration with lognormal Lame
    fields, and K8's on every chunk of the 4096-patch elasticity weig
-   step.
+   step;
+15. shard: the scaling axes over ``torch.distributed``, ranks started by
+   ``parallel.mesh.spawn`` (one process each) on the one card: the main
+   path's step through ``build_step(make_mesh(1))`` at world size 1 over
+   NCCL against ``build_step()`` in the same process; at world size 2
+   over gloo, both ranks on cuda:0, the main step and the 4096-patch
+   elasticity step (Schur split: K6 / K7 / K2 / K4 / K5), gathered on
+   rank 0 and held to the single-card steps of this process (A_st 1e-4,
+   u 1e-3 relative: the JAX dry run's bounds, ``__graft_entry__.py``),
+   and the sample-sharded sweep on 4 of the Monte-Carlo configuration's
+   random fields, each held to the single-card step on its field; then
+   ``MC_SHARD=2`` through the example's ``main`` (its QoIs against the
+   same steps').  Per path: backend, world size, patches a rank, halo
+   bytes a rank, first-call and steady walls, peak memory a rank and
+   each rank's launches (which must be what the rank's share of the code
+   path implies).  Two ranks on one card measure the cost of the
+   communication, not scaling.
 
 Every path counts its kernel launches from 0, set just before its first
 call and read just after its last; each K4 row's device time per step of
@@ -194,7 +210,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "el-kernels", "e2e-f64", "jacobi",
           "main", "weig", "elasticity", "run", "routes", "reaction",
-          "monte-carlo", "scale")
+          "monte-carlo", "scale", "shard")
 # H100 SXM: float32 outside the tensor cores, float64 on them (DMMA)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
@@ -298,6 +314,13 @@ PATH_KERNELS = {
 }
 # float64 with the float32 path's smallk choices: the path's own kernels
 PATH_KERNELS["r5-diffusion-f64-f32-rule"] = _MAIN
+# the shard phase: the main and the elasticity route on each rank's share
+PATH_KERNELS.update({"shard-main-ws1": _MAIN, "shard-main-ws2": _MAIN,
+                     "shard-elasticity-ws2": _ELASTIC,
+                     "shard-sweep-ws2": _MAIN, "shard-mc": _MAIN})
+# a sharded step against the single-card step: the JAX dry run's bounds
+# (__graft_entry__.py:82-83), relative max differences
+SHARD_BOUND = {"A_st": 1e-4, "u": 1e-3}
 # the main path's launches a step (32 chunks of 128 patches)
 MAIN_LAUNCHES = {"K1 fused_spd_multirhs": 32, "K2 gj_inverse": 64,
                  "K3 stencil_trace": 64, "K4 mgs_qr": 96,
@@ -3033,6 +3056,245 @@ def phase_scale(card):
     return table, paths
 
 
+def shard_drive(path, s, step, calls):
+    """One rank's share of driving a sharded ``step`` ``calls`` times: the
+    ranks start each call together and its wall ends when every rank is
+    done; the rank's launch counts are set to 0 just before the first call
+    and read just after the last, and must be ``calls`` times what the
+    rank's share of the code path implies (``expected_launches`` on the
+    patches it built), every kernel of ``PATH_KERNELS[path]`` launched."""
+    import torch
+    import torch.distributed as dist
+    from dealii_slod_tpu_torch.utils import kernels
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls = []
+    for _ in range(calls):
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = step(s.coef_q, s.fem_rhs)
+        torch.cuda.synchronize()
+        dist.barrier()
+        walls.append(time.perf_counter() - t0)
+    counts = dict(kernels.launches)
+    expected = {k: v * calls for k, v in expected_launches(s).items()}
+    check(counts == expected and all(counts.get(k, 0) > 0
+                                     for k in PATH_KERNELS[path]),
+          f"{path} rank {dist.get_rank()}: launches {counts}, expected "
+          f"{expected}")
+    res = s.coarse_cg
+    return out, dict(
+        counts=counts, walls=walls, rank=dist.get_rank(),
+        backend=dist.get_backend(), world=dist.get_world_size(),
+        rows=s.basis_patches, halo_bytes=s.halo_bytes,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        cg=None if res is None else (int(res.n_iter), bool(res.converged)),
+        gather_bytes=s.topo.n_patches * s.C * s.Phi.element_size())
+
+
+def shard_rank_ws1(timed):
+    """World size 1 (NCCL): the main path through ``build_step(
+    make_mesh(1))``, then ``build_step()`` in this process; both held."""
+    from dealii_slod_tpu_torch.parallel import make_mesh
+    from dealii_slod_tpu_torch.parallel.mesh import full_tensor
+    s = make_solver(bench_cfg("float32"), False)
+    s.assemble_fine_rhs()
+    step = s.build_step(make_mesh(1, device="cuda"))
+    (u, A_st), nums = shard_drive("shard-main-ws1", s, step, 1 + timed)
+    u, A_st = full_tensor(u), full_tensor(A_st)
+    u1, A1 = s.build_step()(s.coef_q, s.fem_rhs)
+    return dict(nums, e_u=rel(u, u1), e_A=rel(A_st, A1),
+                finite=bool(u.isfinite().all() and A_st.isfinite().all()))
+
+
+def shard_rank_ws2(timed):
+    """One of two ranks (gloo, one card): the main and the elasticity
+    path through ``build_step(make_mesh(2))`` and the sample-sharded sweep
+    on 4 of the Monte-Carlo configuration's fields (MC_* set by the
+    caller); rank 0 returns the gathered outputs."""
+    import torch
+    import torch.distributed as dist
+    from dealii_slod_tpu_torch.examples import monte_carlo
+    from dealii_slod_tpu_torch.parallel import (make_mesh, stack_fields,
+                                                sweep_step)
+    from dealii_slod_tpu_torch.parallel.mesh import full_tensor
+    from dealii_slod_tpu_torch.utils import kernels
+    rank0, out = dist.get_rank() == 0, {}
+    for path, cfg, elastic in (
+            ("shard-main-ws2", bench_cfg("float32"), False),
+            ("shard-elasticity-ws2", elastic_cfg("float32"), True)):
+        s = make_solver(cfg, elastic)
+        s.assemble_fine_rhs()
+        step = s.build_step(make_mesh(2, device="cuda"))
+        (u, A_st), nums = shard_drive(path, s, step, 1 + timed)
+        u, A_st = full_tensor(u), full_tensor(A_st)
+        out[path] = dict(nums, u=u.cpu() if rank0 else None,
+                         A_st=A_st.cpu() if rank0 else None,
+                         solver_mode=s.solver_mode, spec_mode=s.spec_mode)
+        del s, u, A_st
+        torch.cuda.empty_cache()
+    run = monte_carlo.setup("cuda")
+    s = run["solver"]
+    batch = stack_fields([run["field"](i + 1) for i in range(4)])
+    sweep = sweep_step(s, make_mesh(2, axis="samples", device="cuda"),
+                       axis="samples")
+    torch.cuda.synchronize()
+    dist.barrier()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    u, A_st = sweep(batch, s.fem_rhs)
+    torch.cuda.synchronize()
+    dist.barrier()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    n_local = u.to_local().shape[0]
+    expected = {k: v * n_local for k, v in expected_launches(s).items()}
+    check(counts == expected and n_local == 2,
+          f"shard-sweep-ws2 rank {dist.get_rank()}: launches {counts}, "
+          f"expected {expected} for {n_local} samples")
+    u, A_st = full_tensor(u), full_tensor(A_st)
+    out["shard-sweep-ws2"] = dict(
+        counts=counts, walls=[wall], rank=dist.get_rank(),
+        backend=dist.get_backend(), world=2, rows=n_local,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        u=u.cpu() if rank0 else None, A_st=A_st.cpu() if rank0 else None)
+    return out
+
+
+def shard_report(path, ranks, card):
+    """Print a shard path's numbers, rank by rank; the path's summed
+    launches and per-rank figures for the kernels line."""
+    walls = ranks[0]["walls"]
+    first, steady = walls[0], (min(walls[1:]) if len(walls) > 1 else None)
+    print(f"[{path}] {ranks[0]['backend']}, world size {ranks[0]['world']}"
+          f" [{card}]: first call {first:.3f} s" + (
+              f", steady {steady:.3f} s (calls {walls})" if steady else ""))
+    counts = {}
+    for r in ranks:
+        extra = ""
+        if "halo_bytes" in r:
+            extra = (f"; halo in {r['halo_bytes']} B; u gathered "
+                     f"{r['gather_bytes']} B a coarse matvec; CG {r['cg']}")
+        print(f"[{path}]   rank {r['rank']}: {r['rows']} "
+              f"{'samples' if 'sweep' in path else 'patches'}; peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB{extra}; launches "
+              f"{r['counts']}")
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    return dict(counts=counts, first_call_s=first, steady_wall_s=steady)
+
+
+def phase_shard(card):
+    """The scaling axes on the one card (see the module docstring, 15):
+    single-card references in this process, then world size 1 over NCCL,
+    world size 2 over gloo (main, elasticity, the sample sweep) and
+    MC_SHARD=2 through the example; returns the per-path numbers."""
+    import numpy as np
+    import torch
+    from dealii_slod_tpu_torch.examples import monte_carlo
+    from dealii_slod_tpu_torch.parallel import stack_fields, sweep_step
+    from dealii_slod_tpu_torch.parallel.mesh import spawn
+    t_phase = time.perf_counter()
+    print(f"[shard] ranks share one card [{card}]: the two-rank walls "
+          "measure the cost of the communication (gloo, staged through "
+          "host memory where it must be), not scaling")
+    mc_env = dict(MC_ENV, MC_SAMPLES="4", MC_FIELD="random")
+    refs, single = {}, {}
+    for path, cfg, elastic in (
+            ("shard-main-ws2", bench_cfg("float32"), False),
+            ("shard-elasticity-ws2", elastic_cfg("float32"), True)):
+        s = make_solver(cfg, elastic)
+        s.assemble_fine_rhs()
+        step = s.build_step()
+        refs[path] = tuple(v.cpu() for v in step(s.coef_q, s.fem_rhs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(s.coef_q, s.fem_rhs)
+        torch.cuda.synchronize()
+        single[path] = time.perf_counter() - t0
+        print(f"[{path}] the single-card step in this process: steady "
+              f"{single[path]:.3f} s [{card}]")
+        del s, step
+    run = env_run(lambda: monte_carlo.setup("cuda"), **mc_env)
+    batch = stack_fields([run["field"](i + 1) for i in range(4)])
+    refs["shard-sweep-ws2"] = tuple(v.cpu() for v in sweep_step(
+        run["solver"])(batch, run["solver"].fem_rhs))
+    per_sample = expected_launches(run["solver"])
+    del run, batch
+    torch.cuda.empty_cache()
+    print(f"[shard] single-card references in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    paths = {}
+    t0 = time.perf_counter()
+    ws1 = spawn(shard_rank_ws1, 1, "cuda", 1)[0].value
+    print(f"[shard-main-ws1] spawn to end {time.perf_counter() - t0:.1f} s;"
+          f" sharded vs build_step() in the rank: A_st rel "
+          f"{ws1['e_A']:.3e} (<= {SHARD_BOUND['A_st']:g}), u rel "
+          f"{ws1['e_u']:.3e} (<= {SHARD_BOUND['u']:g})")
+    check(ws1["backend"] == "nccl" and ws1["finite"]
+          and ws1["e_A"] <= SHARD_BOUND["A_st"]
+          and ws1["e_u"] <= SHARD_BOUND["u"],
+          "shard-main-ws1: the world-size-1 step differs from the step")
+    paths["shard-main-ws1"] = shard_report("shard-main-ws1", [ws1], card)
+
+    t0 = time.perf_counter()
+    ws2 = [r.value for r in env_run(
+        lambda: spawn(shard_rank_ws2, 2, "cuda", 1), **mc_env)]
+    print(f"[shard] world size 2: spawn to end "
+          f"{time.perf_counter() - t0:.1f} s")
+    for path in ("shard-main-ws2", "shard-elasticity-ws2",
+                 "shard-sweep-ws2"):
+        ranks = [r[path] for r in ws2]
+        u, A_st = ranks[0]["u"], ranks[0]["A_st"]
+        u1, A1 = refs[path]
+        e_A, e_u = rel(A_st, A1), rel(u, u1)
+        if path == "shard-sweep-ws2":
+            e_A = max(rel(A_st[i], A1[i]) for i in range(len(A1)))
+            e_u = max(rel(u[i], u1[i]) for i in range(len(u1)))
+        paths[path] = shard_report(path, ranks, card)
+        print(f"[{path}] gathered on rank 0 vs the single-card step"
+              f"{' (each sample)' if 'sweep' in path else ''}: A_st rel "
+              f"{e_A:.3e} (<= {SHARD_BOUND['A_st']:g}), u rel {e_u:.3e} "
+              f"(<= {SHARD_BOUND['u']:g})")
+        check(all(r["backend"] == "gloo" for r in ranks)
+              and u.shape == u1.shape and bool(torch.isfinite(u).all())
+              and e_A <= SHARD_BOUND["A_st"] and e_u <= SHARD_BOUND["u"],
+              f"{path}: the sharded result differs from the single card's")
+        check(path == "shard-sweep-ws2" or all(
+            r["cg"] is None or r["cg"][1] for r in ranks),
+            f"{path}: a rank's coarse CG did not converge")
+    el = ws2[0]["shard-elasticity-ws2"]
+    check(el["solver_mode"] == "fused_split" and el["spec_mode"] == "smallk",
+          "shard-elasticity-ws2: not the Schur split and smallk")
+
+    t0 = time.perf_counter()
+    mc = env_run(lambda: monte_carlo.main([]), **mc_env, MC_SHARD="2")
+    wall = time.perf_counter() - t0
+    q_ref = refs["shard-sweep-ws2"][0].double().mean(dim=(1, 2)).numpy()
+    e_q = float(np.max(np.abs(np.array(mc["qoi"]) - q_ref)
+                       / np.abs(q_ref)))
+    expected = {k: 2 * 2 * v for k, v in per_sample.items()}
+    print(f"[shard-mc] MC_SHARD=2 [{card}]: spawn to end {wall:.1f} s; "
+          f"first call {mc['first_s']:.3f} s, batch of 4 {mc['wall']:.3f} "
+          f"s; QoIs vs the single-card steps rel {e_q:.3e} (<= "
+          f"{SHARD_BOUND['u']:g}); launches by rank {mc['launches']} "
+          f"(expected {expected} each: 2 calls of 2 samples)")
+    check(e_q <= SHARD_BOUND["u"] and all(
+        dict(c) == expected for c in mc["launches"]),
+        "shard-mc: MC_SHARD=2's QoIs or launches are off")
+    counts = {}
+    for c in mc["launches"]:
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    paths["shard-mc"] = dict(counts=counts, first_call_s=mc["first_s"],
+                             steady_wall_s=mc["wall"])
+    print(f"[shard] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3102,6 +3364,8 @@ def main():
             rows, more = phase_scale(card)
             table += rows
             paths.update(more)
+        if "shard" in phases:
+            paths.update(phase_shard(card))
     except Exception as exc:                     # any phase failure
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr)

@@ -38,8 +38,11 @@ multi_rhs, monte_carlo)::
 and the command line, ``python -m dealii_slod_tpu_torch.cli
 diffusion|elasticity|reaction [file.prm] [--device cpu]``.  ``LODSolver``,
 the sweep, the examples and the CLI run on the card unless given
-``device="cpu"``.  The sharded step and the sharded sweep raise
-``NotImplementedError`` naming their ROADMAP.md entry.
+``device="cpu"``.  The scaling axes run over ``torch.distributed``
+(``parallel/mesh.py``): ``build_step(mesh)`` shards the patch axis and
+``sweep_step(solver, mesh, axis="samples")`` the sample axis over the
+ranks of a ``DeviceMesh`` (``parallel.make_mesh``), started by
+``parallel.mesh.spawn`` or ``torchrun``; the outputs are ``DTensor``s.
 """
 
 __version__ = "0.1.0"

@@ -15,19 +15,29 @@ quantity of interest mean(u_H) (the mean coarse response) across samples.
     MC_DIM=3 MC_REFINE=4 MC_SAMPLES=32 MC_FIELD=lognormal \\
         python -m dealii_slod_tpu_torch.examples.monte_carlo
     python -m dealii_slod_tpu_torch.examples.monte_carlo --device cpu
+    MC_SHARD=2 python -m dealii_slod_tpu_torch.examples.monte_carlo
+    torchrun --nproc-per-node 2 -m \\
+        dealii_slod_tpu_torch.examples.monte_carlo              # MC_SHARD=2
 
 Environment: MC_DIM (2), MC_REFINE (4), MC_SAMPLES (8), MC_CONTRAST (1e2),
 MC_COEF_REFINE (4), MC_DTYPE (float32 on the card, float64 on the CPU),
 MC_FIELD ("random": the reference-style i.i.d. piecewise-constant field,
 sampled on the host; "lognormal": correlated Gaussian log-fields sampled
 on the run's device by ``models.coefficients.lognormal_lattice_batch``),
-MC_CORR_LEN (0.1).  MC_SHARD (the sample axis sharded over several cards)
-is not ported and raises.
+MC_CORR_LEN (0.1), MC_SHARD (N: the sample axis sharded over N ranks,
+``parallel.sweep_step(mesh=...)``: each rank runs its share of the
+samples, and rank 0 prints the first call's wall, the batch's wall and
+the QoIs.  The ranks are started by ``parallel.mesh.spawn``, each on a
+card of its own or, where there are fewer cards than ranks, sharing them
+over gloo;
+under ``torchrun`` the ranks are torchrun's and MC_SHARD defaults to its
+world size).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 
@@ -46,16 +56,15 @@ def lattice_index(points, refinement: int, device) -> torch.Tensor:
                            device=device)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="torch device to run on (default: the card)")
-    args = ap.parse_args(argv)
+def setup(device) -> dict:
+    """The run's configuration from the MC_* environment, its solver on
+    ``device`` (fine rhs assembled) and ``field(seed)`` -> the sample's
+    coefficients on that device (MC_FIELD=lognormal: the device sampler's
+    lattices for seeds 0 .. MC_SAMPLES, drawn here)."""
     from dealii_slod_tpu_torch import (DiffusionProblem, LODSolver,
                                        ReductionControl, SLODConfig)
     from dealii_slod_tpu_torch.models.coefficients import (
         RandomField, lognormal_lattice_batch)
-    from dealii_slod_tpu_torch.models.lod import SCALING, _not_ported
 
     dim = int(os.environ.get("MC_DIM", 2))
     refine = int(os.environ.get("MC_REFINE", 4))
@@ -63,11 +72,7 @@ def main(argv=None):
     contrast = float(os.environ.get("MC_CONTRAST", 1e2))
     coef_ref = int(os.environ.get("MC_COEF_REFINE", 4))
     field_kind = os.environ.get("MC_FIELD", "random")
-    n_shard = int(os.environ.get("MC_SHARD", 0))
-    if n_shard:
-        _not_ported(f"MC_SHARD={n_shard} (the sample axis sharded over "
-                    f"{n_shard} cards)", SCALING)
-    dev = torch.device(args.device)
+    dev = torch.device(device)
 
     cfg = SLODConfig(
         dim=dim, n_global_refinements=refine, n_subdivisions=2,
@@ -81,8 +86,6 @@ def main(argv=None):
     solver = LODSolver(cfg, DiffusionProblem(cfg), device=dev,
                        verbose=False)
     solver.assemble_fine_rhs()
-    rhs = solver.fem_rhs
-    step = solver.build_step()
 
     lattice, sampler_s = None, 0.0
     if field_kind == "lognormal":
@@ -104,6 +107,41 @@ def main(argv=None):
                             seed=seed, sampler="numpy")
             return {"alpha": torch.as_tensor(f(solver.qpts),
                                              dtype=solver.dtype, device=dev)}
+    return dict(dim=dim, refine=refine, n_samples=n_samples,
+                contrast=contrast, field_kind=field_kind, solver=solver,
+                field=field, lattice=lattice, sampler_s=sampler_s)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="torch device to run on (default: the card)")
+    args = ap.parse_args(argv)
+    import torch.distributed as dist
+
+    ranks = dist.is_initialized() or "WORLD_SIZE" in os.environ
+    n_shard = int(os.environ.get("MC_SHARD", 0) or (
+        os.environ.get("WORLD_SIZE", 0) if ranks else 0))
+    if n_shard and not ranks:
+        # one process per rank; the parent builds the kernels once first
+        from dealii_slod_tpu_torch.parallel.mesh import spawn
+        if torch.device(args.device).type == "cuda":
+            from dealii_slod_tpu_torch.utils import kernels
+            kernels.library()
+        out = spawn(functools.partial(_rank_main, ["--device", args.device]),
+                    n_shard, args.device)
+        return dict(out[0].value, launches=[r.launches for r in out])
+    mesh = None
+    if n_shard:
+        # before the solver: a rank's tensors go to the rank's card
+        from dealii_slod_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(n_shard, axis="samples", device=args.device)
+    run = setup(args.device)
+    if mesh is not None:
+        return _sharded(run, mesh)
+    solver, field, n_samples = run["solver"], run["field"], run["n_samples"]
+    rhs, dev = solver.fem_rhs, solver.device
+    step = solver.build_step()
 
     # the first call, on sample 0, builds the tables
     t0 = time.perf_counter()
@@ -120,20 +158,61 @@ def main(argv=None):
         qoi.append(q)
 
     q = np.array(qoi)
-    print(f"config: dim={dim} refine={refine} patches={solver.topo.n_patches}"
-          f" contrast={contrast:g} dtype={cfg.dtype} field={field_kind} "
+    print(f"config: dim={run['dim']} refine={run['refine']} "
+          f"patches={solver.topo.n_patches} contrast={run['contrast']:g} "
+          f"dtype={solver.cfg.dtype} field={run['field_kind']} "
           f"device={dev.type}")
-    if lattice is not None:
+    if run["lattice"] is not None:
         print(f"sampler ({n_samples + 1} fields on the {dev.type}): "
-              f"{sampler_s * 1e3:.1f} ms")
+              f"{run['sampler_s'] * 1e3:.1f} ms")
     print(f"first call (once): {first_s:.2f} s")
     print(f"per-sample: median {np.median(walls) * 1e3:.1f} ms "
           f"(min {min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}) "
           f"over {n_samples} fields")
     print(f"QoI mean(u_H): mean {q.mean():.6e}  std {q.std():.2e}  "
           f"rel spread {q.std() / abs(q.mean()):.3f}")
-    return dict(qoi=qoi, walls=walls, first_s=first_s, sampler_s=sampler_s,
-                lattice=lattice, solver=solver, field=field)
+    return dict(qoi=qoi, walls=walls, first_s=first_s,
+                sampler_s=run["sampler_s"], lattice=run["lattice"],
+                solver=solver, field=field)
+
+
+def _sharded(run, mesh):
+    """MC_SHARD: the samples 1 .. MC_SAMPLES of ``setup``'s run sharded
+    over ``mesh``'s ranks (the JAX script's MC_SHARD branch): the sweep's
+    first call, then the same batch again, timed to the QoIs on rank 0."""
+    import torch.distributed as dist
+
+    from dealii_slod_tpu_torch.parallel import stack_fields, sweep_step
+    from dealii_slod_tpu_torch.parallel.mesh import full_tensor
+    solver, n_samples, n_shard = run["solver"], run["n_samples"], mesh.size()
+    sw = sweep_step(solver, mesh=mesh, axis="samples")
+    batch = stack_fields([run["field"](s + 1) for s in range(n_samples)])
+    walls = []
+    for _ in range(2):                      # the first call, then steady
+        t0 = time.perf_counter()
+        u, _ = sw(batch, solver.fem_rhs)
+        q = full_tensor(u).mean(dim=(1, 2)).cpu().numpy()
+        walls.append(time.perf_counter() - t0)
+    first_s, wall = walls
+    if dist.get_rank() == 0:
+        print(f"config: dim={run['dim']} refine={run['refine']} "
+              f"patches={solver.topo.n_patches} "
+              f"contrast={run['contrast']:g} samples={n_samples} sharded "
+              f"over {n_shard} ranks ({dist.get_backend()}, "
+              f"{solver.device.type})")
+        print(f"first call (once): {first_s:.2f} s")
+        print(f"batch of {n_samples}: {wall * 1e3:.1f} ms "
+              f"({wall / n_samples * 1e3:.2f} ms/sample)")
+        print(f"QoI mean(u_H): mean {q.mean():.6e}  std {q.std():.2e}")
+    return dict(qoi=[float(v) for v in q], first_s=first_s, wall=wall,
+                samples_per_rank=u.to_local().shape[0], solver=solver)
+
+
+def _rank_main(argv):
+    """One spawned rank of MC_SHARD: ``main`` in the rank's process group;
+    the picklable part of its result."""
+    out = main(argv)
+    return {k: v for k, v in out.items() if k != "solver"}
 
 
 if __name__ == "__main__":

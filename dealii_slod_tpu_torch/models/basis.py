@@ -474,18 +474,38 @@ def window_stack_chunk(Xpad, chunk_idx: int, R: int, win: int, s: int):
     return _unfold_windows(sub, win, s)
 
 
-def coef_windows(cfg, grid, coef):
+def window_rows(Xpad, rows: tuple, win: int, s: int):
+    """Rows [a, b) of ``_unfold_windows(Xpad, win, s)`` (the windows of
+    patches a .. b-1 in lex order), cut from the planes of the slowest
+    axis that they touch: a patch range's windows without the others'."""
+    a, b = rows
+    n_w = [(n - win) // s + 1 for n in Xpad.shape[:-1]]
+    plane = int(np.prod(n_w[1:]))
+    z0, z1 = a // plane, (b - 1) // plane + 1
+    sub = Xpad[z0 * s:(z1 - 1) * s + win]
+    return _unfold_windows(sub, win, s)[a - z0 * plane:b - z0 * plane]
+
+
+def coef_windows(cfg, grid, coef, rows: tuple | None = None):
     """Patch-subcell coefficient windows (n_fine_cells, nq) ->
-    (P, n_sub, nq); out-of-domain subcells are zero."""
+    (P, n_sub, nq); out-of-domain subcells are zero.  ``rows`` = [a, b):
+    only patches a .. b-1."""
     win = (2 * cfg.oversampling + 1) * cfg.n_subdivisions
+    if rows is not None:
+        return window_rows(coef_lattice(cfg, grid, coef), rows, win,
+                           cfg.n_subdivisions)
     X = coef.reshape(_rev(grid.fine_cell_dims) + (coef.shape[-1],))
     return window_stack(X, win, cfg.n_subdivisions, cfg.oversampling)
 
 
-def rhs_windows(cfg, grid, fem_rhs):
+def rhs_windows(cfg, grid, fem_rhs, rows: tuple | None = None):
     """Canvas-node windows of the fine rhs (n_nodes, C) -> (P, canvas_n,
     C); out-of-domain canvas nodes are zero (every consumer multiplies by a
-    basis canvas that vanishes there)."""
+    basis canvas that vanishes there).  ``rows`` as ``coef_windows``."""
     win = (2 * cfg.oversampling + 1) * cfg.n_subdivisions + 1
     X = fem_rhs.reshape(_rev(grid.node_dims) + (fem_rhs.shape[-1],))
+    if rows is not None:
+        pad = cfg.oversampling * cfg.n_subdivisions
+        return window_rows(F.pad(X, (0, 0) + (pad, pad) * cfg.dim), rows,
+                           win, cfg.n_subdivisions)
     return window_stack(X, win, cfg.n_subdivisions, cfg.oversampling)

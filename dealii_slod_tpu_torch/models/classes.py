@@ -157,21 +157,26 @@ def class_chunk(solver, ct: ClassTables, coefs, rows: slice):
     return to_canvas(phi), to_canvas(Aphi)
 
 
-def compute_basis(solver, coefs):
+def compute_basis(solver, coefs, rows=None):
     """Canvases (P, canvas_n, C, C) of every patch, class by class in
-    chunks of ``cfg.patch_chunk`` patches (0 = the whole class)."""
-    P, C = solver.topo.n_patches, solver.C
-    Phi = torch.zeros((P, solver.canvas_n, C, C), dtype=solver.dtype,
+    chunks of ``cfg.patch_chunk`` patches (0 = the whole class); with
+    ``rows`` = (a, b) only the patches a .. b-1, each class building the
+    ones it holds, and the canvases are those rows."""
+    a, b = rows or (0, solver.topo.n_patches)
+    C = solver.C
+    Phi = torch.zeros((b - a, solver.canvas_n, C, C), dtype=solver.dtype,
                       device=solver.device)
     APhi = torch.zeros_like(Phi)
     for ci in range(len(solver.topo.classes)):
         if ci not in solver._class_tables:
             solver._class_tables[ci] = class_tables(solver, ci)
         ct = solver._class_tables[ci]
-        B = len(ct.pids)
-        step = solver.cfg.patch_chunk or B
-        for lo in range(0, B, step):
-            rows = slice(lo, min(B, lo + step))
-            Phi[ct.pids[rows]], APhi[ct.pids[rows]] = class_chunk(
-                solver, ct, coefs, rows)
+        # a class's patch ids are ascending: its share is one range
+        lo_c, hi_c = (int(i) for i in np.searchsorted(
+            solver.topo.patches_by_class[ci], (a, b)))
+        step = solver.cfg.patch_chunk or (hi_c - lo_c)
+        for lo in range(lo_c, hi_c, step):
+            sl = slice(lo, min(hi_c, lo + step))
+            Phi[ct.pids[sl] - a], APhi[ct.pids[sl] - a] = class_chunk(
+                solver, ct, coefs, sl)
     return Phi, APhi

@@ -15,8 +15,11 @@ elsewhere), the banded or the scatter assembly, the trace kernel or its
 scan, the coarse CG or the direct coarse solve; ``kernel_mode="classes"``
 builds the basis per patch shape class (``models/classes.py``), and on a
 constant field the uniform route builds one patch per window signature.
-The sharded step raises ``NotImplementedError`` naming its ROADMAP.md
-entry."""
+``build_step(mesh)`` shards the patch axis over the ranks of a
+``DeviceMesh`` (``parallel/mesh.py``): each rank builds its own patches'
+basis, receives its neighbours' canvases for the coarse stencil rows it
+owns, and runs its rows of the coarse CG with the dot products summed
+over the ranks."""
 
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from dealii_slod_tpu_torch.config import ParsedFunction, SLODConfig
 from dealii_slod_tpu_torch.grid import (GridSpec, PatchTopology,
@@ -41,13 +45,12 @@ from dealii_slod_tpu_torch.ops.assembly import (FineOperator,
                                                 make_subcell_matrices)
 from dealii_slod_tpu_torch.ops.solvers import (cg, cholesky_solve,
                                                dense_dirichlet_solve)
+from dealii_slod_tpu_torch.parallel.mesh import (all_gather_rows,
+                                                 check_mesh, exchange_rows,
+                                                 replicate)
 from dealii_slod_tpu_torch.utils import errors
 from dealii_slod_tpu_torch.utils.errors import ConvergenceTable, host_array
 from dealii_slod_tpu_torch.utils.timers import StageTimer
-
-# the ROADMAP.md Queue 1 entry that the refusals below name, by title
-SCALING = "scaling axes"
-
 
 @contextlib.contextmanager
 def full_f32_matmuls():
@@ -77,11 +80,6 @@ def _full_f32(method):
         with full_f32_matmuls():
             return method(self, *args, **kwargs)
     return run
-
-
-def _not_ported(what: str, title: str):
-    raise NotImplementedError(f"{what} is not ported yet "
-                              f"(ROADMAP.md Queue 1: {title})")
 
 
 def spectral_mode(cfg: SLODConfig, device: torch.device) -> str:
@@ -244,6 +242,7 @@ class LODSolver:
         self._dedup = None
         self._class_tables = {}
         self._stencil_tables = None
+        self._slab_tables = {}
         self._placement = None
 
     def parse(self, spec):
@@ -359,7 +358,7 @@ class LODSolver:
         return self._dedup or None
 
     @_full_f32
-    def compute_basis(self, coefs=None):
+    def compute_basis(self, coefs=None, rows=None):
         """Basis canvases ``self.Phi`` / ``self.APhi`` (P, canvas_n, C, C),
         chunk by chunk (``cfg.patch_chunk`` patches; 0 = all at once).
 
@@ -367,46 +366,54 @@ class LODSolver:
         only the unique window signatures and gathers them back with one
         index (the coefficient windows are off then, as in the
         reference); fields passed in (``build_step``) are never deduped.
+        ``rows`` = (a, b) builds the patches a .. b-1 alone (a rank's
+        share of the sharded step), and the canvases are those rows.
         ``self.basis_patches`` is the number of patches built."""
         if self.cfg.kernel_mode != "uniform":
             Phi, APhi = classes.compute_basis(
-                self, self.coef_q if coefs is None else coefs)
+                self, self.coef_q if coefs is None else coefs, rows)
             self.Phi, self.APhi = Phi, APhi
-            self.basis_patches = self.topo.n_patches
+            self.basis_patches = len(Phi)
             return Phi, APhi
-        dedup = self._dedup_inputs_t() if coefs is None else None
+        dedup = (self._dedup_inputs_t() if coefs is None and rows is None
+                 else None)
         coefs = self.coef_q if coefs is None else coefs
         tab = self._uniform_tables()
         if dedup is None:
             gsub, nlo_t, nhi_t, sides_t = self._uniform_inputs_t()
         else:
             gsub, nlo_t, nhi_t, sides_t, inv = dedup
-        B, C = len(nlo_t), self.C
+        a, b = rows or (0, len(nlo_t))
+        B, C = b - a, self.C
         step = self.cfg.patch_chunk or B
-        rows = (self._window_chunk_rows(coefs, B, step) if gsub is None
-                else None)
-        if rows is not None:
+        # per-chunk windows where the chunks are the reference's chunks
+        # (the chunk index counts from patch 0)
+        wrows = (self._window_chunk_rows(coefs, len(nlo_t), step)
+                 if gsub is None and a % step == 0 and B % step == 0
+                 else None)
+        if wrows is not None:
             lattices = {k: basis.coef_lattice(self.cfg, self.grid, coefs[k])
                         for k in self.coef_names}
             win = (2 * self.cfg.oversampling + 1) * self.cfg.n_subdivisions
 
             def windows(lo, hi):
                 return {k: basis.window_stack_chunk(
-                    L, lo // step, rows, win, self.cfg.n_subdivisions)
+                    L, lo // step, wrows, win, self.cfg.n_subdivisions)
                     for k, L in lattices.items()}
         else:
-            cw = {k: (basis.coef_windows(self.cfg, self.grid, coefs[k])
-                      if gsub is None else coefs[k][gsub])
+            cw = {k: (basis.coef_windows(self.cfg, self.grid, coefs[k],
+                                         rows)
+                      if gsub is None else coefs[k][gsub[a:b]])
                   for k in self.coef_names}
 
             def windows(lo, hi):
-                return {k: v[lo:hi] for k, v in cw.items()}
+                return {k: v[lo - a:hi - a] for k, v in cw.items()}
         Phi = torch.empty((B, self.canvas_n, C, C), dtype=self.dtype,
                           device=self.device)
         APhi = torch.empty_like(Phi)
-        for lo in range(0, B, step):
-            hi = min(B, lo + step)
-            Phi[lo:hi], APhi[lo:hi] = basis.uniform_chunk(
+        for lo in range(a, b, step):
+            hi = min(b, lo + step)
+            Phi[lo - a:hi - a], APhi[lo - a:hi - a] = basis.uniform_chunk(
                 tab, windows(lo, hi), nlo_t[lo:hi], nhi_t[lo:hi],
                 sides_t[lo:hi])
         if dedup is not None:
@@ -433,13 +440,23 @@ class LODSolver:
                    * coefs[k].element_size() for k in self.coef_names)
         return rows if full > basis.WINDOW_SLAB_BYTES else None
 
-    def _stencil_build(self, Phi, APhi):
-        if self._stencil_tables is None:
-            self._stencil_tables = stencil.stencil_tables(
-                self.cfg, self.grid, self.canvas_dims, self.stencil_offsets,
-                self.device, self.dtype)
-        return stencil.stencil_build(Phi, APhi, self._stencil_tables,
-                                     self.cfg, self.dtype)
+    def _stencil_build(self, Phi, APhi, slab=None):
+        """A_st from the canvases of every patch, or on a ``stencil_slab``
+        its rows from the slab's canvases."""
+        if slab is None:
+            if self._stencil_tables is None:
+                self._stencil_tables = stencil.stencil_tables(
+                    self.cfg, self.grid, self.canvas_dims,
+                    self.stencil_offsets, self.device, self.dtype)
+            tab = self._stencil_tables
+        else:
+            key = slab["rows"]
+            if key not in self._slab_tables:
+                self._slab_tables[key] = stencil.stencil_tables(
+                    self.cfg, self.grid, self.canvas_dims,
+                    self.stencil_offsets, self.device, self.dtype, slab)
+            tab = self._slab_tables[key]
+        return stencil.stencil_build(Phi, APhi, tab, self.cfg, self.dtype)
 
     @_full_f32
     def assemble_coarse_operator(self):
@@ -448,29 +465,46 @@ class LODSolver:
         return self.A_stencil
 
     @_full_f32
-    def coarse_dense_matrix(self, A_st):
+    def coarse_dense_matrix(self, A_st, rows=None):
+        """The dense coarse matrix (P C, P C), or its rows of the patches
+        ``rows`` = (a, b) from those rows of A_st."""
+        if rows is not None:
+            a, b = rows
+            place = stencil.dense_placement(self.stencil_nbr_np[a:b],
+                                            self.stencil_valid_np[a:b],
+                                            self.device)
+            return stencil.coarse_dense_matrix(A_st, place,
+                                               self.topo.n_patches)
         if self._placement is None:
             self._placement = stencil.dense_placement(
                 self.stencil_nbr_np, self.stencil_valid_np, self.device)
         return stencil.coarse_dense_matrix(A_st, self._placement)
 
-    def _coarse_matvec_fn(self, A_st):
+    def _coarse_matvec_fn(self, A_st, rows=None, group=None):
         """Dense matvec below ``coarse_dense_cap`` (the matrix is built
-        once, outside the CG loop), stencil matvec beyond."""
-        if self.topo.n_patches * self.C <= self.cfg.coarse_dense_cap:
-            Ad = self.coarse_dense_matrix(A_st)
-            return lambda u: (Ad @ u.reshape(-1)).reshape(u.shape)
-        nbr = self._t(self.stencil_nbr_np, torch.int64)
-        valid = self._t(self.stencil_valid_np, torch.bool)
-        return lambda u: stencil.coarse_matvec_with(A_st, u, nbr, valid)
+        once, outside the CG loop), stencil matvec beyond.  Sharded
+        (``rows`` = the rank's patches, ``group``): A_st holds those rows,
+        the matvec maps the rank's rows of u to the rank's rows of A u and
+        gathers the whole u from every rank first (P C values a matvec)."""
+        dense = self.topo.n_patches * self.C <= self.cfg.coarse_dense_cap
+        sl = slice(None) if rows is None else slice(*rows)
+        gather = ((lambda u: u) if group is None
+                  else (lambda u: all_gather_rows(u, group)))
+        if dense:
+            Ad = self.coarse_dense_matrix(A_st, rows)
+            return lambda u: (Ad @ gather(u).reshape(-1)).reshape(u.shape)
+        nbr = self._t(self.stencil_nbr_np[sl], torch.int64)
+        valid = self._t(self.stencil_valid_np[sl], torch.bool)
+        return lambda u: stencil.coarse_matvec_with(A_st, gather(u), nbr,
+                                                    valid)
 
-    def _coarse_cg(self, A_st, rhs_c):
+    def _coarse_cg(self, A_st, rhs_c, rows=None, group=None):
         # block-diagonal Jacobi: the C x C centre block's diagonal
         diag = torch.einsum("pdd->pd", A_st[:, self.center_offset_idx])
         rc = self.cfg.coarse_solver
-        return cg(self._coarse_matvec_fn(A_st), rhs_c,
+        return cg(self._coarse_matvec_fn(A_st, rows, group), rhs_c,
                   max_steps=rc.max_steps, tolerance=rc.tolerance,
-                  reduce=rc.reduce, precond=lambda r: r / diag)
+                  reduce=rc.reduce, precond=lambda r: r / diag, group=group)
 
     def _use_direct_coarse(self) -> bool:
         """``coarse_solve="direct"`` applies up to ``coarse_dense_cap``
@@ -489,22 +523,31 @@ class LODSolver:
 
         return solve
 
-    def _solve_coarse_system(self, A_st, rhs_c):
+    def _solve_coarse_system(self, A_st, rhs_c, rows=None, group=None):
         """The coarse solution and the CG result (None on the direct
-        route)."""
+        route).  Sharded (``rows`` = the rank's patches, ``group``): the
+        rank's rows; the direct route gathers A_st and the rhs from every
+        rank and factors the whole matrix on each."""
         if self._use_direct_coarse():
-            return self._coarse_direct_fn(A_st)(rhs_c), None
-        res = self._coarse_cg(A_st, rhs_c)
+            if group is not None:
+                A_st = all_gather_rows(A_st, group)
+                rhs_c = all_gather_rows(rhs_c, group)
+            x = self._coarse_direct_fn(A_st)(rhs_c)
+            return x if rows is None else x[slice(*rows)], None
+        res = self._coarse_cg(A_st, rhs_c, rows, group)
         return res.x, res
 
-    def _coarse_rhs(self, Phi, fem_rhs):
+    def _coarse_rhs(self, Phi, fem_rhs, rows=None):
         """C^T f: the rhs's canvas windows (zero outside the domain), or
         on the classes route the clipped gather ``fem_rhs[canvas_gidx]``
-        as the reference's; the canvases vanish where the two differ."""
+        as the reference's; the canvases vanish where the two differ.
+        ``rows`` = (a, b): the rows of the patches a .. b-1, whose canvases
+        ``Phi`` holds."""
         if self.cfg.kernel_mode == "uniform":
-            f_at = basis.rhs_windows(self.cfg, self.grid, fem_rhs)
+            f_at = basis.rhs_windows(self.cfg, self.grid, fem_rhs, rows)
         else:
-            f_at = fem_rhs[self.canvas_gidx]
+            sl = slice(None) if rows is None else slice(*rows)
+            f_at = fem_rhs[self.canvas_gidx[sl]]
         return torch.einsum("pncd,pnc->pd", Phi, f_at)
 
     @_full_f32
@@ -860,11 +903,39 @@ class LODSolver:
         the direct coarse solve).  The step also leaves ``Phi``, ``APhi``,
         ``A_stencil``, ``coarse_solution`` and ``coarse_cg`` on the solver,
         so that ``prolong_lod_solution`` can follow it.  On the card the step, as
-        every public stage, runs under ``full_f32_matmuls``."""
-        if mesh is not None:
-            _not_ported("build_step(mesh=...) (patch-axis sharding)",
-                        SCALING)
-        return self._step
+        every public stage, runs under ``full_f32_matmuls``.
+
+        With ``mesh`` (a ``DeviceMesh``, ``parallel.make_mesh``; every rank
+        calls the step with the whole field and rhs) the patch axis is
+        sharded over the mesh's ``cfg.mesh_axis`` dimension, the
+        reference's MPI patch partitioning (source/LOD.cc:116-118): with
+        P % n == 0 rank r owns the patches [r P / n, (r + 1) P / n) and the
+        outputs are ``DTensor``s, ``Shard(0)`` (``full_tensor()``, or
+        ``parallel.mesh.full_tensor`` over gloo on a card, gives the global
+        arrays); ``Phi``, ``APhi``, ``A_stencil`` and
+        ``coarse_solution`` left on the solver are the rank's own rows, so
+        ``prolong_lod_solution`` does not follow a sharded step.  Otherwise
+        every rank computes every patch, as the reference replicates, and
+        the outputs are ``Replicate()``.  A ``mesh`` that is not a
+        ``DeviceMesh`` raises ``TypeError``; one on another device type
+        than the solver's, or without that dimension, ``ValueError``."""
+        if mesh is None:
+            return self._step
+        axis = self.cfg.mesh_axis
+        check_mesh(mesh, axis, self.device)
+        n, P = mesh.size(), self.topo.n_patches
+        if P % n:
+            # correct but not parallel: make it visible, as the reference
+            self.log(f"WARNING: leading axis {P} not divisible by {n} "
+                     "devices; array left replicated")
+
+            def replicated(coefs, fem_rhs):
+                self.halo_bytes = 0
+                return tuple(replicate(mesh, x)
+                             for x in self._step(coefs, fem_rhs))
+
+            return replicated
+        return functools.partial(self._sharded_step, mesh, axis)
 
     @_full_f32
     def _step(self, coefs, fem_rhs):
@@ -874,3 +945,33 @@ class LODSolver:
                                            self._coarse_rhs(Phi, fem_rhs))
         self.coarse_solution, self.coarse_cg = x, res
         return x, A_st
+
+    @_full_f32
+    def _sharded_step(self, mesh, axis, coefs, fem_rhs):
+        """One rank's share of the step over ``mesh``: the basis of its
+        patches; the canvases of the patches within 2 l planes of them
+        from the ranks that own them (point to point; ``halo_bytes`` says
+        how much came in); its rows of A_st on that slab
+        (``stencil_slab``, the byte rule read on the global P); its rows
+        of the coarse rhs; and its rows of the coarse CG (dots summed over
+        the ranks, u gathered a matvec) or, with the direct coarse solve,
+        A_st and the rhs gathered and factored on every rank."""
+        group = mesh.get_group(axis)
+        n, r = mesh.size(), mesh.get_local_rank(axis)
+        P = self.topo.n_patches
+        owned = [(t * P // n, (t + 1) * P // n) for t in range(n)]
+        slabs = [stencil.stencil_slab(self.cfg, P, o) for o in owned]
+        rows = owned[r]
+        Phi, APhi = self.compute_basis(coefs, rows)
+        need = [sl["patches"] for sl in slabs]
+        Phi_s, b_phi = exchange_rows(Phi, owned, need, group)
+        APhi_s, b_aphi = exchange_rows(APhi, owned, need, group)
+        self.halo_bytes = b_phi + b_aphi
+        A_st = self._stencil_build(Phi_s, APhi_s, slabs[r])
+        del Phi_s, APhi_s
+        self.A_stencil = A_st
+        x, res = self._solve_coarse_system(
+            A_st, self._coarse_rhs(Phi, fem_rhs, rows), rows, group)
+        self.coarse_solution, self.coarse_cg = x, res
+        return tuple(DTensor.from_local(v, mesh, [Shard(0)], run_check=False)
+                     for v in (x, A_st))

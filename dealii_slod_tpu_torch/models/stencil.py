@@ -65,18 +65,50 @@ def slot_match_matrix(tab: dict, n_stencil: int) -> np.ndarray:
 
 
 def shift_index(N: int, dim: int, ell: int, slot_dims: int, sign: int,
-                device, dtype):
+                device, dtype, rows: tuple | None = None,
+                src_rows: tuple | None = None):
     """Static gather of the slot-indexed lattice shift (``_shift_slots``)
     of an (E, slots, rest) table: sign=+1: out[e, k] = X[e + (ell - k), k];
     sign=-1: out[q, k] = X[q + (k - ell), k]; zero where the shifted cell
-    leaves the lattice.  Returns (source rows (E, slots), validity)."""
+    leaves the lattice.  Returns (source rows (E, slots), validity).
+
+    On a slab (the sharded build): ``rows`` = [r0, r1) keeps the output
+    rows of those lattice ids, and X holds only the lattice ids
+    ``src_rows`` = [s0, s1), so the sources count from s0 and a source
+    outside them is zero as well."""
     cells = cartesian_coords(np.full(dim, N))
+    if rows is not None:
+        cells = cells[rows[0]:rows[1]]
     slots = cartesian_coords(np.full(dim, slot_dims))
     src = cells[:, None, :] + sign * (ell - slots[None, :, :])
     valid = ((src >= 0) & (src < N)).all(-1)
     src_flat = ravel(np.clip(src, 0, N - 1), np.full(dim, N))
+    if src_rows is not None:
+        valid &= (src_flat >= src_rows[0]) & (src_flat < src_rows[1])
+        src_flat = np.clip(src_flat - src_rows[0], 0,
+                           src_rows[1] - src_rows[0] - 1)
     return (torch.as_tensor(src_flat, device=device),
             torch.as_tensor(valid, dtype=dtype, device=device))
+
+
+def stencil_slab(cfg, P: int, rows: tuple) -> dict:
+    """The lattice ids that the rows [a, b) of A_st read, as whole planes
+    of the slowest axis (patch ids are x-fastest, so a range of rows covers
+    consecutive planes; a range that starts or ends mid-plane widens to
+    the whole plane): the cells within l of a row (the patch-row read) and
+    the patches within 2 l of a row (the side tables read patches within
+    l of a cell), clipped to the domain.  The A phi side also reads patch
+    e - l - 1 for cell e, but only into slot pairs whose offset lies
+    beyond the stencil, which the slab's tables mask."""
+    N, dim, ell = cfg.n_coarse, cfg.dim, cfg.oversampling
+    plane = N ** (dim - 1)
+    z0, z1 = rows[0] // plane, (rows[1] - 1) // plane + 1
+
+    def widen(w):
+        return (max(0, z0 - w) * plane, min(N, z1 + w) * plane)
+
+    return dict(rows=tuple(rows), cells=widen(ell), patches=widen(2 * ell),
+                P=P)
 
 
 def shift_slots(X, index, lo: int = 0):
@@ -92,24 +124,33 @@ def shift_slots(X, index, lo: int = 0):
 
 
 def stencil_tables(cfg, grid, canvas_dims, stencil_offsets, device,
-                   dtype) -> dict:
+                   dtype, slab: dict | None = None) -> dict:
     """``cell_tables`` and ``slot_match_matrix`` as device tensors, with
-    the three lattice-shift gathers of the build."""
+    the three lattice-shift gathers of the build.  With a ``stencil_slab``
+    the tables build the rows ``slab["rows"]`` of A_st from the canvases
+    of the patches ``slab["patches"]`` alone."""
     tab = cell_tables(cfg, grid, canvas_dims, stencil_offsets)
     N, dim, ell = cfg.n_coarse, cfg.dim, cfg.oversampling
     kappa = 2 * ell + 1
-    out = dict(K=tab["K"], K2=tab["K2"], O=tab["O"], dim=dim, kappa=kappa)
+    out = dict(K=tab["K"], K2=tab["K2"], O=tab["O"], dim=dim, kappa=kappa,
+               P=N ** dim if slab is None else slab["P"])
     for w in ("1", "2"):
         out["cnode" + w] = torch.as_tensor(tab["cnode" + w].reshape(-1),
                                            device=device)
         out["incv" + w] = torch.as_tensor(tab["incv" + w].reshape(-1),
                                           dtype=dtype, device=device)
-    out["own"] = torch.as_tensor(tab["own"], dtype=dtype, device=device)
-    out["shift1"] = shift_index(N, dim, ell, kappa, 1, device, dtype)
-    out["shift2"] = shift_index(N, dim, ell, kappa + 1, 1, device, dtype)
+    sl = slab or {}
+    cells, patches = sl.get("cells"), sl.get("patches")
+    own = tab["own"] if cells is None else tab["own"][cells[0]:cells[1]]
+    out["own"] = torch.as_tensor(own, dtype=dtype, device=device)
+    out["shift1"] = shift_index(N, dim, ell, kappa, 1, device, dtype,
+                                cells, patches)
+    out["shift2"] = shift_index(N, dim, ell, kappa + 1, 1, device, dtype,
+                                cells, patches)
     # the patch-row read G2[q, k] = T[e(q, k), k], e = q + ks[k] - ell
     # (the reference's e_idx / evalid)
-    out["shift_rows"] = shift_index(N, dim, ell, kappa, -1, device, dtype)
+    out["shift_rows"] = shift_index(N, dim, ell, kappa, -1, device, dtype,
+                                    sl.get("rows"), cells)
     out["M3"] = torch.as_tensor(
         slot_match_matrix(tab, len(stencil_offsets)), dtype=dtype,
         device=device)
@@ -161,9 +202,11 @@ def planes_chunks(P: int, CC: int, kappa: int, dim: int, O: int, item: int,
 def stencil_build(Phi, APhi, tab: dict, cfg, dtype):
     """The coarse operator (P, S, C, C) by the build ``stencil_plan``
     picks for these shapes: the reference's rule to the byte, so both
-    packages take the same branch on every configuration."""
-    P, C = Phi.shape[0], Phi.shape[-1]
-    plan = stencil_plan(cfg, P, C, torch.finfo(dtype).bits // 8)
+    packages take the same branch on every configuration.  On a slab
+    (``stencil_tables(..., slab=...)``) the rule reads the global P, and
+    the branch runs on the slab's canvases."""
+    C = Phi.shape[-1]
+    plan = stencil_plan(cfg, tab["P"], C, torch.finfo(dtype).bits // 8)
     if plan[0] == "planes":
         return stencil_build_cells_planes(
             Phi, APhi, tab, cfg.stencil_side_budget_mb * (1 << 20))
@@ -195,32 +238,33 @@ def stencil_build_cells(Phi, APhi, tab: dict, n_chunks: int = 1):
     add into A_st: the K axis is independent through steps 3-4 and the
     indicator product sums over it, so neither T nor G2 is ever whole
     (``n_chunks`` = 1 builds them whole; the sums agree to rounding)."""
-    P, C = Phi.shape[0], Phi.shape[-1]
+    C = Phi.shape[-1]
     K, K2, O = tab["K"], tab["K2"], tab["O"]
+    E, Q = len(tab["own"]), len(tab["shift_rows"][0])      # cells, rows
     Pc = _side_table(Phi, tab, "1", "shift1")              # (E, K, O C C)
     # owned-node mask on one side only (idempotent in the product)
-    Ac = _side_table(APhi, tab, "2", "shift2").reshape(P, K2, O, C * C) \
+    Ac = _side_table(APhi, tab, "2", "shift2").reshape(E, K2, O, C * C) \
         * tab["own"][:, None, :, None]
     # (e, k, o, c, d) -> (e, (k, d), (o, c)): the contraction is one bmm
-    Pc = Pc.reshape(P, K, O, C, C).permute(0, 1, 4, 2, 3).reshape(
-        P, K * C, O * C)
-    Ac = Ac.reshape(P, K2, O, C, C).permute(0, 1, 4, 2, 3).reshape(
-        P, K2 * C, O * C)
+    Pc = Pc.reshape(E, K, O, C, C).permute(0, 1, 4, 2, 3).reshape(
+        E, K * C, O * C)
+    Ac = Ac.reshape(E, K2, O, C, C).permute(0, 1, 4, 2, 3).reshape(
+        E, K2 * C, O * C)
     Kc = -(-K // max(1, n_chunks))
     A_st = None
     for k0 in range(0, K, Kc):
         k1 = min(K, k0 + Kc)
         Tk = Pc[:, k0 * C:k1 * C] @ Ac.mT                  # (E, Kc d, K2 f)
-        G2 = shift_slots(Tk.reshape(P, k1 - k0, -1), tab["shift_rows"], k0)
+        G2 = shift_slots(Tk.reshape(E, k1 - k0, -1), tab["shift_rows"], k0)
         del Tk
         # (q, k, d, m, f) -> (q, d, f, (k, m)) against the indicator rows
         # of this K range (the flat row index (k, m) is k-major)
-        G2 = G2.reshape(P, k1 - k0, C, K2, C).permute(0, 2, 4, 1, 3) \
-            .reshape(P, C * C, (k1 - k0) * K2)
+        G2 = G2.reshape(Q, k1 - k0, C, K2, C).permute(0, 2, 4, 1, 3) \
+            .reshape(Q, C * C, (k1 - k0) * K2)
         part = G2 @ tab["M3"][k0 * K2:k1 * K2]             # (P, C C, S)
         del G2
         A_st = part if A_st is None else A_st.add_(part)
-    return A_st.mT.reshape(P, -1, C, C)
+    return A_st.mT.reshape(Q, -1, C, C)
 
 
 def stencil_build_cells_planes(Phi, APhi, tab: dict, budget_bytes: int):
@@ -230,20 +274,21 @@ def stencil_build_cells_planes(Phi, APhi, tab: dict, budget_bytes: int):
     a contiguous range of the flat slot index), so that no whole side
     table exists; ``planes_chunks`` sizes the ranges.  The canvas nodes
     are gathered once per (side, range), and the basis-column pairs
-    (d, f) are a loop.  Eager execution runs the ranges one after the
+    (d, f) are a loop.  The ranges are sized for the tables' global P,
+    also on a slab.  Eager execution runs the ranges one after the
     other and ``del`` frees each one's tables before the next: the
     reference needs optimization barriers for that."""
     P, C = Phi.shape[0], Phi.shape[-1]
-    CC = C * C
     K, K2, O = tab["K"], tab["K2"], tab["O"]
+    Q = len(tab["shift_rows"][0])
     dim, kappa = tab["dim"], tab["kappa"]
-    zk, zm = planes_chunks(P, CC, kappa, dim, O, Phi.element_size(),
-                           budget_bytes)
+    zk, zm = planes_chunks(tab["P"], C * C, kappa, dim, O,
+                           Phi.element_size(), budget_bytes)
     plane1, plane2 = kappa ** (dim - 1), (kappa + 1) ** (dim - 1)
     S = tab["M3"].shape[-1]
     M3 = tab["M3"].reshape(K, K2, S)
     own_oc = tab["own"].repeat_interleave(C, dim=1)[:, None, :]  # (E,1,OC)
-    A_st = Phi.new_zeros((P, C, C, S))
+    A_st = Phi.new_zeros((Q, C, C, S))
 
     def side(X, which, shift, lo, hi, col):
         """(E, hi - lo, O C) table of basis column ``col`` from the
@@ -266,7 +311,7 @@ def stencil_build_cells_planes(Phi, APhi, tab: dict, budget_bytes: int):
                     Tk = pc[d] @ Ac_f.mT                   # (E, kc, mc)
                     G2 = shift_slots(Tk, tab["shift_rows"], klo)
                     del Tk
-                    A_st[:, d, f] += G2.reshape(P, -1) @ M3blk
+                    A_st[:, d, f] += G2.reshape(Q, -1) @ M3blk
                     del G2
                 del Ac_f
             del pc
@@ -284,14 +329,17 @@ def dense_placement(stencil_nbr: np.ndarray, stencil_valid: np.ndarray,
                  for a in (q, k, stencil_nbr[q, k]))
 
 
-def coarse_dense_matrix(A_st, placement) -> torch.Tensor:
+def coarse_dense_matrix(A_st, placement, n_cols: int | None = None
+                        ) -> torch.Tensor:
     """Dense (P C, P C) coarse operator from the stencil blocks (P, S, C, C)
-    (one static, collision-free scatter of C x C blocks)."""
+    (one static, collision-free scatter of C x C blocks); on a rank's rows
+    of A_st (Q, S, C, C) and their placement, its (Q C, n_cols C) rows."""
     q, k, col = placement
-    P, C = A_st.shape[0], A_st.shape[-1]
-    dense = A_st.new_zeros((P, C, P, C))
+    Q, C = A_st.shape[0], A_st.shape[-1]
+    P = Q if n_cols is None else n_cols
+    dense = A_st.new_zeros((Q, C, P, C))
     dense[q, :, col, :] = A_st[q, k]
-    return dense.reshape(P * C, P * C)
+    return dense.reshape(Q * C, P * C)
 
 
 def coarse_matvec_with(A_st, u, nbr: torch.Tensor, valid: torch.Tensor):

@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 
 class CGResult(NamedTuple):
@@ -18,8 +19,13 @@ class CGResult(NamedTuple):
     converged: torch.Tensor
 
 
-def _dot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), c.reshape(-1))
+def _dot(a: torch.Tensor, c: torch.Tensor, group=None) -> torch.Tensor:
+    """a . c, summed over the ranks of ``group`` when one is given (each
+    rank holds its rows of a and c)."""
+    d = torch.dot(a.reshape(-1), c.reshape(-1))
+    if group is not None:
+        dist.all_reduce(d, group=group)
+    return d
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -28,7 +34,8 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        max_steps: int = 1000, tolerance: float = 1e-10, reduce: float = 1e-2,
-       precond: Optional[Callable] = None, check_every: int = 8) -> CGResult:
+       precond: Optional[Callable] = None, check_every: int = 8,
+       group=None) -> CGResult:
     """Stop when the residual norm falls below ``tolerance`` OR below
     ``reduce * initial_residual`` OR after ``max_steps`` iterations.
 
@@ -37,14 +44,21 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     iteration carries a convergence latch, and once the residual passes
     the threshold the remaining iterations are masked no-ops — so ``x``,
     the exact deal.II iteration count ``n_iter`` and ``converged`` are
-    those of a per-iteration stop."""
+    those of a per-iteration stop.
+
+    ``group`` (a ``torch.distributed`` process group; the counterpart of
+    the reference's ``psum_axis``): ``b``, ``x`` and the vectors are the
+    rank's rows, ``matvec`` maps the rank's rows to the rank's rows (it
+    gathers what it needs itself), and every dot product is summed over
+    the group.  The host's stop test reads only those sums, so every rank
+    leaves the loop at the same chunk and none waits in a collective."""
     x = torch.zeros_like(b) if x0 is None else x0
     if precond is None:
         precond = lambda r: r                                    # noqa: E731
     r = b - matvec(x)
     z = precond(r)
-    rz = _dot(r, z)
-    res0 = torch.sqrt(_dot(r, r))
+    rz = _dot(r, z, group)
+    res0 = torch.sqrt(_dot(r, r, group))
     threshold = torch.clamp(reduce * res0, min=tolerance)
     thr2 = threshold * threshold
     p = z
@@ -57,17 +71,17 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         for _ in range(k):
             active = (~done) & (n_it < max_steps)
             Ap = matvec(p)
-            alpha = _safe_div(rz, _dot(p, Ap)) * active.to(b.dtype)
+            alpha = _safe_div(rz, _dot(p, Ap, group)) * active.to(b.dtype)
             x = x + alpha * p
             r = r - alpha * Ap
             z = precond(r)
-            rz_new = _dot(r, z)
+            rz_new = _dot(r, z, group)
             beta = _safe_div(rz_new, rz)
             p = torch.where(active, z + beta * p, p)
             rz = torch.where(active, rz_new, rz)
             n_it = n_it + active.to(n_it.dtype)
-            done = done | (_dot(r, r) <= thr2)
-    return CGResult(x, n_it, torch.sqrt(_dot(r, r)), res0, done)
+            done = done | (_dot(r, r, group) <= thr2)
+    return CGResult(x, n_it, torch.sqrt(_dot(r, r, group)), res0, done)
 
 
 def cholesky_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """The port's package boundary: it never loads jax or the JAX package,
 it runs on the card unless asked for the CPU and refuses a CUDA device that
 is not there, it resolves the "auto" knobs by the reference's rules, every
-knob value of the basis and coarse routes builds and steps, and what it
-does not implement (the sharded step and sweep) raises, naming its
-ROADMAP.md entry by title."""
+knob value of the basis and coarse routes builds and steps, the sharded
+step refuses a mesh that is not a ``DeviceMesh``, and no refusal naming a
+ROADMAP.md entry is left."""
 
 import os
 import re
@@ -84,6 +84,8 @@ def test_import_and_cpu_step_never_load_jax():
         # reaction-diffusion, the sampler, the sweep and the Monte-Carlo
         # example
         import dealii_slod_tpu_torch.examples.monte_carlo
+        import dealii_slod_tpu_torch.parallel.mesh
+        from dealii_slod_tpu_torch.parallel import make_mesh, shard_patches
         from dealii_slod_tpu_torch.models.coefficients import (
             lognormal_lattice_batch)
         from dealii_slod_tpu_torch.parallel import stack_fields, sweep_step
@@ -280,39 +282,29 @@ def test_unsupported_knobs_raise():
     assert "C = 1 or dim" in _refusal({})
 
 
-def _queue1_text():
-    with open(os.path.join(REPO, "ROADMAP.md")) as fh:
-        text = fh.read()
-    return text.split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
-
-
-def test_refusals_name_a_queue1_title(monkeypatch):
-    """Each refusal names a Queue 1 entry of ROADMAP.md by its title (a
-    bold item heading there), so renumbering the queue cannot break it:
-    the sharded step, the sharded sweep and the Monte-Carlo example's
-    MC_SHARD."""
-    from dealii_slod_tpu_torch.examples import monte_carlo
-    from dealii_slod_tpu_torch.models import lod
-    from dealii_slod_tpu_torch.parallel import sweep_step
-    msgs = []
-    s = pt.LODSolver(tiny_cfg(), pt.DiffusionProblem(tiny_cfg()),
-                     device="cpu", verbose=False)
-    monkeypatch.setenv("MC_SHARD", "4")
-    for call in (lambda: s.build_step(mesh=object()),
-                 lambda: sweep_step(s, mesh=object(), axis="samples"),
-                 lambda: monte_carlo.main(["--device", "cpu"])):
-        with pytest.raises(NotImplementedError) as info:
-            call()
-        msgs.append(str(info.value))
-    headings = [h.lower() for h in
-                re.findall(r"^\d+\. \*\*(.+?)\.?\*\*", _queue1_text(),
-                           re.M)]
-    titles = {lod.SCALING}
-    for msg in msgs:
-        title = re.search(r"ROADMAP\.md Queue 1: ([^)]+)\)", msg).group(1)
-        assert title in titles, msg
-    for title in titles:
-        assert any(h.startswith(title) for h in headings), (title, headings)
+def test_refusals_name_a_queue1_title():
+    """No refusal naming a ROADMAP.md entry is left in the port: the one
+    ``NotImplementedError`` it raises is the C not in {1, dim} guard (held
+    by ``test_unsupported_knobs_raise``), and no source of the package
+    names ROADMAP.md.  The calls that refused before (the sharded step,
+    the sharded sweep, MC_SHARD) are held to the JAX package's results in
+    ``tests/test_torch_sharding.py``."""
+    pkg = os.path.join(REPO, "dealii_slod_tpu_torch")
+    raises, named = [], []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            with open(path) as fh:
+                text = fh.read()
+            rel_path = os.path.relpath(path, REPO)
+            raises += [rel_path for _ in
+                       re.finditer(r"raise NotImplementedError", text)]
+            if "ROADMAP" in text:
+                named.append(rel_path)
+    assert raises == ["dealii_slod_tpu_torch/models/lod.py"], raises
+    assert not named, named
 
 
 @pytest.mark.parametrize("knobs", [
@@ -340,10 +332,12 @@ def test_reference_knobs_build_and_step_on_cpu(knobs):
 
 
 def test_sharded_step_raises():
+    """A ``mesh`` that is not a torch ``DeviceMesh`` raises ``TypeError``
+    (``tests/test_torch_sharding.py`` holds the sharded step itself)."""
     cfg = tiny_cfg()
     s = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
                      verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         s.build_step(mesh=object())
 
 

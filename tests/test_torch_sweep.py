@@ -148,10 +148,12 @@ def test_stack_fields():
 
 
 def test_sharded_sweep_raises():
+    """A ``mesh`` that is not a torch ``DeviceMesh`` raises ``TypeError``
+    (``tests/test_torch_sharding.py`` holds the sharded sweep itself)."""
     cfg = pt.SLODConfig(**SWEEP)
     s = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device="cpu",
                      verbose=False)
-    with pytest.raises(NotImplementedError, match="scaling axes"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sweep_step(s, mesh=object(), axis="samples")
 
 
