@@ -122,7 +122,10 @@ Phases (each prints its numbers; any failure exits non-zero):
    launches), its prolonged field against the fused step's in float64
    and its float32 X and T in K1's float32 gate on every chunk; the
    direct coarse solve on the 4096-patch float64 step against CG (walls);
-   a basis checkpoint saved and loaded on the card; the scatter assembly
+   a basis checkpoint saved and loaded on the card, refused by solvers
+   whose settings key differs (``smallk_power``, the reaction problem)
+   and loaded by the same configuration's solver on the CPU; the scatter
+   assembly
    and ``trace_kernel="off"`` (no K3) against the default route at
    refine-3 float64; and the examples ``convergence_study
    --refinements 3 4 5`` and ``multi_rhs`` on the card;
@@ -152,7 +155,12 @@ Phases (each prints its numbers; any failure exits non-zero):
    random field at coef_max = 1e4;
 14. scale: the JAX package's largest configurations, one first call and
    one timed call each: ``r5-diffusion`` (3D refine-5, 32768 patches; its
-   prolonged field within 1e-2 of the float64 smallk step's),
+   prolonged field within 1e-2 of float64 with the float32 smallk
+   choices; the relative L2 and energy errors of the float32, float64
+   and float64-with-the-float32-rule fields, each coarse system solved
+   exactly, against the float64 fine FEM solution, the float32 one held
+   to ``R5_F32_FEM_BOUND``; with ``--profile``, its first call split
+   into its parts),
    ``r5-elasticity`` (the same grid with C = 3; the plane-chunked coarse
    build, no float64 twin), ``l3-diffusion`` (refine-4, l = 3: the Schur
    split at C = 1) and ``l3-elasticity-r3`` (refine-3, l = 3, chunks of
@@ -388,6 +396,18 @@ WEIG_FIELD_BOUND = {
     "elasticity-r3-weig-f32": ("elasticity-r3-f32", 5.708e-06),
     "elasticity-r3-weig-f64": ("elasticity-r3-f64", 1.004e-04),
 }
+
+
+# the r5-diffusion comparison with fine FEM: the float64 fine solve's CG
+# (max_steps, tolerance, reduce), Jacobi, to 1e-10 of its first residual
+# (201 iterations on an NVIDIA H100 80GB HBM3 at 700 W), far below the LOD
+# fields' distances from it.  A regression guard on the float32 rule, not
+# a proof of float32 accuracy: the float32 field's relative L2 and energy
+# errors are each held to this factor times the float64 field's, 1.5x the
+# larger float32 / float64 error ratio of the first run (43.80 in L2, 32.54
+# in energy, on an NVIDIA H100 80GB HBM3 at 700 W)
+FINE_FEM_CONTROL = (20000, 1e-30, 1e-10)
+R5_F32_FEM_BOUND = 66.0
 
 
 class PhaseError(RuntimeError):
@@ -2357,6 +2377,27 @@ def phase_routes(card):
               f"MiB) saved and loaded on the card: solve_coarse rel max "
               f"diff {e_c:.3e} (<= 1e-12)")
         check(e_c <= 1e-12, "routes: the loaded basis solves differently")
+        # the settings key: a solver whose smallk stage or problem differs
+        # refuses the file; the same configuration's CPU solver loads it
+        t0 = time.perf_counter()
+        for label, other in (
+                ("smallk_power=1", make_solver(dataclasses.replace(
+                    sd.cfg, smallk_power=1), False)),
+                ("the reaction problem", make_solver(sd.cfg, False,
+                                                     reaction=True))):
+            check(not checkpoint.load_basis(other, path),
+                  f"routes: the checkpoint loaded into a solver with {label}")
+            del other
+        cpu = make_solver(sd.cfg, False, device="cpu")
+        check(checkpoint.load_basis(cpu, path)
+              and cpu.Phi.device.type == "cpu"
+              and bool((cpu.A_stencil == sd.A_stencil.cpu()).all()),
+              "routes: the card's checkpoint did not load on the CPU as "
+              "saved")
+        del cpu
+        print(f"[routes] checkpoint settings: refused by smallk_power=1 and "
+              f"by the reaction problem, loaded on the CPU bit for bit "
+              f"({time.perf_counter() - t0:.1f} s)")
     del sd, sf64, fresh
 
     # 5. scatter and the scan trace against the default route, refine-3
@@ -2975,6 +3016,7 @@ def scale_path(card, paths, path, cfg, elastic, twin, bound, route, plan,
     s64, paths[twin_path] = run_path(twin_path, twin, timed=0,
                                      elastic=elastic)
     field64, ex64 = s64.prolong_lod_solution().cpu(), exact_field(s64)
+    judge = fine_fem_judge(path, s64, card) if bound is None else None
     del s64
     torch.cuda.empty_cache()
     e = rel(ex, ex64)
@@ -3003,9 +3045,143 @@ def scale_path(card, paths, path, cfg, elastic, twin, bound, route, plan,
           f"{twin_path} {rel(ex_rule, ex64):.3e}")
     check(e_rule <= 1e-2, f"{path}: f32 and {rule_path} prolonged fields "
           "disagree")
+    fem_errors(path, paths, judge, {"float32": ex, "float64": ex64,
+                                    "float64, float32 rule": ex_rule})
 
 
-def phase_scale(card):
+def fine_fem_judge(path, s, card):
+    """The float64 fine FEM solution of solver ``s`` (``solve_fine_fem``,
+    CG with Jacobi under ``FINE_FEM_CONTROL``), timed, and a function
+    that gives a prolonged field's relative L2 and energy errors against
+    it (the energy from the fine operator; the Dirichlet data is 0)."""
+    import torch
+    from dealii_slod_tpu_torch import ReductionControl
+    from dealii_slod_tpu_torch.ops.assembly import FineOperator
+    from dealii_slod_tpu_torch.utils import errors
+    check(s.dtype == torch.float64 and s.cfg.bc == "0",
+          f"{path}: the fine FEM comparison needs float64 and bc 0")
+    s.cfg = dataclasses.replace(
+        s.cfg, fine_solver=ReductionControl(*FINE_FEM_CONTROL))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = s.solve_fine_fem()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = s.fine_cg
+    print(f"[{path}] fine FEM (float64, {s.grid.n_nodes} nodes): CG with "
+          f"Jacobi {int(res.n_iter)} it, converged {bool(res.converged)}, "
+          f"reduce {FINE_FEM_CONTROL[2]:g}, {wall:.1f} s [{card}]")
+    check(bool(res.converged), f"{path}: the fine FEM CG did not converge")
+    op = FineOperator(s.et, s.conn, s.coef_q, dirichlet_mask=s.fine_bnd)
+    grid, et, conn = s.grid, s.et, s.conn
+    l2_u = errors.error_norms(grid, et, conn, u,
+                              other=torch.zeros_like(u))["L2"]
+    en_u = float((u * op(u)).sum()) ** 0.5
+
+    def judge(field):
+        f = field.to(u.device, u.dtype)
+        e = f - u
+        l2 = errors.error_norms(grid, et, conn, f, other=u)["L2"]
+        return l2 / l2_u, float((e * op(e)).sum()) ** 0.5 / en_u
+
+    return judge
+
+
+def fem_errors(path, paths, judge, fields):
+    """Each prolonged field's relative L2 and energy errors against fine
+    FEM; which of the float32 and float64 bases is nearer; the float32
+    one held to ``R5_F32_FEM_BOUND``."""
+    errs = {label: judge(f) for label, f in fields.items()}
+    for label, (l2, en) in errs.items():
+        print(f"[{path}] {label} basis against fine FEM: relative L2 "
+              f"{l2:.4e}, energy {en:.4e}")
+    for i, norm in enumerate(("L2", "energy")):
+        e32, e64 = errs["float32"][i], errs["float64"][i]
+        nearer = "float32" if e32 < e64 else "float64"
+        print(f"[{path}] nearer fine FEM in {norm}: the {nearer} basis "
+              f"(float32 / float64 error {e32 / e64:.4f})")
+        factor = R5_F32_FEM_BOUND
+        print(f"[{path}] float32 {norm} error {e32:.4e} <= {factor:g} x "
+              f"{e64:.4e} = {factor * e64:.4e}")
+        check(e32 <= factor * e64, f"{path}: the float32 basis's "
+              f"{norm} error against fine FEM is over its bound")
+    paths[path]["fem_errors"] = errs
+
+
+def first_call_breakdown(card, cfg):
+    """r5-diffusion's solver built and stepped once with its parts timed,
+    each ending in a device sync, and printed: the constructor (the patch
+    table, the window folds, the coefficients at the quadrature points,
+    the rest; the StageTimer sections), the kernel library's load, the
+    fine rhs, and the first step (canvas tables, per-patch inputs,
+    coefficient windows, the chunk loop, the coarse build and its tables,
+    the coarse rhs and solve, the rest).  It wraps the port's internal
+    names, so it runs only with ``--profile``."""
+    import collections
+
+    import torch
+    from dealii_slod_tpu_torch import DiffusionProblem, LODSolver
+    from dealii_slod_tpu_torch.models import basis, lod, stencil
+    from dealii_slod_tpu_torch.utils import kernels
+    t_all = time.perf_counter()
+    times, saved = collections.defaultdict(float), []
+
+    def timed(label, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                times[label] += time.perf_counter() - t0
+        return call
+
+    problem = DiffusionProblem(cfg)
+    targets = [
+        (problem, "coefficients", "ctor: coefficients at quadrature points"),
+        (lod, "PatchTopology", "ctor: patch table (PatchTopology)"),
+        (lod, "clipped_window_index", "ctor: window folds"),
+        (LODSolver, "_uniform_tables", "step: canvas tables"),
+        (LODSolver, "_uniform_inputs_t", "step: per-patch inputs"),
+        (basis, "coef_windows", "step: coefficient windows"),
+        (basis, "coef_lattice", "step: coefficient windows"),
+        (basis, "window_stack_chunk", "step: coefficient windows"),
+        (basis, "uniform_chunk", "step: chunk loop"),
+        (LODSolver, "assemble_coarse_operator", "step: coarse build"),
+        (stencil, "stencil_tables", "step: coarse build, of it the tables"),
+        (LODSolver, "_coarse_rhs", "step: coarse rhs and solve"),
+        (LODSolver, "_solve_coarse_system", "step: coarse rhs and solve")]
+    try:
+        for obj, attr, label in targets:
+            fn = getattr(obj, attr)
+            saved.append((obj, attr, fn))
+            setattr(obj, attr, timed(label, fn))
+        s = timed("ctor", LODSolver)(cfg, problem, verbose=False)
+        sections = dict(s.timer.totals)
+        kernels._lib = None
+        timed("kernel library load", kernels.library)()
+        timed("fine rhs", s.assemble_fine_rhs)()
+        step = s.build_step()
+        timed("first step", step)(s.coef_q, s.fem_rhs)
+    finally:
+        for obj, attr, fn in reversed(saved):
+            setattr(obj, attr, fn)
+    del s
+    torch.cuda.empty_cache()
+    for part, whole in (("ctor", "ctor: "), ("first step", "step: ")):
+        times[whole + "rest"] = times[part] - sum(
+            v for k, v in list(times.items())
+            if k.startswith(whole) and "of it" not in k)
+    times.update({f"ctor section {k!r}": v for k, v in sections.items()})
+    print(f"[r5-diffusion first call] parts in s (each ends in a device "
+          f"sync) [{card}]:")
+    for label, v in times.items():
+        print(f"[r5-diffusion first call]   {label:48s} {v:8.3f}")
+    print(f"[r5-diffusion first call] {time.perf_counter() - t_all:.1f} s")
+
+
+def phase_scale(card, profile=False):
     """The JAX package's largest configurations through
     ``LODSolver(cfg, problem).build_step()``: refine-5 diffusion and
     elasticity (32768 patches), l = 3 diffusion (4096 patches) and l = 3
@@ -3014,7 +3190,8 @@ def phase_scale(card):
     windows, and the prolonged field against a float64 twin; the three
     builds on the 4096-patch elasticity basis and the float64 refine-3
     one; the kernel rows at the new shapes and K6's float32 gate on every
-    chunk of l3-diffusion.  Returns (rows, per-path numbers)."""
+    chunk of l3-diffusion; with ``profile``, r5-diffusion's first call
+    split into its parts.  Returns (rows, per-path numbers)."""
     import torch
     paths, t_phase, failed = {}, time.perf_counter(), []
     for path, args in scale_paths().items():
@@ -3027,6 +3204,8 @@ def phase_scale(card):
             failed.append(str(exc))
         torch.cuda.empty_cache()
         print(f"[{path}] {time.perf_counter() - t0:.1f} s")
+        if profile and path == "r5-diffusion":
+            first_call_breakdown(card, args[0])
     # the builds where the whole one still fits
     for label, cfg, tol in (
             ("elasticity (4096 patches, f32)", elastic_cfg("float32"), 1e-5),
@@ -3301,7 +3480,8 @@ def main():
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
                     help="also profile one step of the jacobi, main, weig, "
-                    "elasticity and reaction paths (torch.profiler)")
+                    "elasticity and reaction paths (torch.profiler) and "
+                    "split r5-diffusion's first call into its parts")
     ap.add_argument("--root", default=HERE,
                     help="a directory inside this checkout that holds "
                     "another commit's dealii_slod_tpu_torch (for example "
@@ -3361,7 +3541,7 @@ def main():
         if "monte-carlo" in phases:
             paths.update(phase_monte_carlo(card))
         if "scale" in phases:
-            rows, more = phase_scale(card)
+            rows, more = phase_scale(card, args.profile)
             table += rows
             paths.update(more)
         if "shard" in phases:
