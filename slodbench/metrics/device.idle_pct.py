@@ -1,0 +1,7 @@
+"""device.idle_pct: the share of the traced window in which no kernel,
+copy or fill ran on the card, in %."""
+
+
+def read(ctx):
+    tr = ctx["trace"]
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
