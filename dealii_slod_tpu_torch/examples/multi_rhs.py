@@ -29,12 +29,12 @@ import torch
 
 def serve_fn(solver, mode):
     """fem load vector (n_nodes, C) -> coarse solution (P, C): C^T f over
-    the rhs's canvas windows, then the direct solve (its Cholesky factor
-    made here, once) or the coarse CG."""
-    from dealii_slod_tpu_torch.models import basis
+    the rhs's canvas windows (``solver._coarse_rhs``), then the direct
+    solve (its Cholesky factor made here, once) or the coarse CG; each
+    call is a ``coarse_solve`` span (``utils/timers``)."""
     from dealii_slod_tpu_torch.models.lod import full_f32_matmuls
+    from dealii_slod_tpu_torch.utils.timers import span
 
-    cfg = solver.cfg
     if mode == "direct":
         solve = solver._coarse_direct_fn(solver.A_stencil)
     else:
@@ -42,9 +42,8 @@ def serve_fn(solver, mode):
             return solver._coarse_cg(solver.A_stencil, rhs_c).x
 
     def serve(fem_rhs):
-        with full_f32_matmuls():
-            f_at = basis.rhs_windows(cfg, solver.grid, fem_rhs)
-            return solve(torch.einsum("pncd,pnc->pd", solver.Phi, f_at))
+        with full_f32_matmuls(), span("coarse_solve"):
+            return solve(solver._coarse_rhs(solver.Phi, fem_rhs))
 
     return serve
 

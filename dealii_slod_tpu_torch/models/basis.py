@@ -60,6 +60,7 @@ from dealii_slod_tpu_torch.ops.patch_solve import (fused_spd_multirhs,
                                                    fused_spd_multirhs_split,
                                                    panel_spd_multirhs,
                                                    spd_inverse_schur)
+from dealii_slod_tpu_torch.utils.timers import count, span
 
 # coefficient windows of one coefficient beyond this size are cut per chunk
 # under ``window_chunk="auto"`` (the reference's _WINDOW_SLAB_BYTES)
@@ -382,29 +383,40 @@ def spectral_dvec(tab: UniformTables, G, g0):
         # the eigh stage: G is PSD, so its eigenpairs are its singular
         # triplets (descending, as the reference reorders them)
         lam, V = torch.linalg.eigh(G)
+        if G.is_cuda:
+            count("host_syncs", 1)  # the card's eigh checks its result
         lam, V = lam.flip(-1), V.flip(-1)
     return jacobi_dvec(tab, lam, V, g0)
 
 
-def uniform_chunk(tab: UniformTables, coefs, nlo, nhi, sides):
+def uniform_chunk(tab: UniformTables, coefs, nlo, nhi, sides, out):
     """One chunk of patches: coefficient windows (name -> (B, n_sub, nq))
-    and window data -> (Phi, APhi) canvases (B, nN, C, C)
-    (``_uniform_chunk_fn``)."""
-    band, A_solve, PT_m, cvd = prep(tab, coefs, nlo, nhi)
-    Ainv_PT, T_raw = patch_solve(tab, A_solve, PT_m)
-    del A_solve
-    T = T_raw / tab.Hdim + torch.diag_embed(1.0 - cvd)
-    Tinv = spd_inverse_schur(T)
+    and window data -> the (Phi, APhi) canvases (B, nN, C, C), written into
+    ``out`` = (Phi rows, APhi rows) (``_uniform_chunk_fn``).  Its stages
+    are the spans ``assemble``, ``patch_solve``, ``stabilize`` (SLOD only)
+    and ``canvas`` (``utils/timers``)."""
+    with span("assemble"):
+        band, A_solve, PT_m, cvd = prep(tab, coefs, nlo, nhi)
+    with span("patch_solve"):
+        Ainv_PT, T_raw = patch_solve(tab, A_solve, PT_m)
+        del A_solve
+        T = T_raw / tab.Hdim + torch.diag_embed(1.0 - cvd)
+        Tinv = spd_inverse_schur(T)
     dvec = None
     if tab.slod:
-        S99, is99d = trace_S_chunk(tab, band, Ainv_PT, nlo, nhi, sides)
-        G, g0 = finish_pre_from_S(tab, S99, Tinv, cvd, is99d)
-        del S99
-        B, C = G.shape[:2]
-        dvec = spectral_dvec(tab, G.reshape(B * C, tab.cD, tab.cD),
-                             g0.reshape(B * C, tab.cD)).reshape(B, C, tab.cD)
-    return finish_post_dvec(tab, band, Ainv_PT, Tinv, dvec, cvd, nlo, nhi,
-                            sides)
+        with span("stabilize"):
+            S99, is99d = trace_S_chunk(tab, band, Ainv_PT, nlo, nhi, sides)
+            G, g0 = finish_pre_from_S(tab, S99, Tinv, cvd, is99d)
+            del S99
+            B, C = G.shape[:2]
+            dvec = spectral_dvec(tab, G.reshape(B * C, tab.cD, tab.cD),
+                                 g0.reshape(B * C, tab.cD)).reshape(
+                                     B, C, tab.cD)
+    with span("canvas"):
+        phi, aphi = finish_post_dvec(tab, band, Ainv_PT, Tinv, dvec, cvd,
+                                     nlo, nhi, sides)
+        out[0].copy_(phi)
+        out[1].copy_(aphi)
 
 
 def window_stack(X, win: int, s: int, ell: int):

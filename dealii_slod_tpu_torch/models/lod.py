@@ -50,7 +50,7 @@ from dealii_slod_tpu_torch.parallel.mesh import (all_gather_rows,
                                                  replicate)
 from dealii_slod_tpu_torch.utils import errors
 from dealii_slod_tpu_torch.utils.errors import ConvergenceTable, host_array
-from dealii_slod_tpu_torch.utils.timers import StageTimer
+from dealii_slod_tpu_torch.utils.timers import StageTimer, count, span, spanned
 
 @contextlib.contextmanager
 def full_f32_matmuls():
@@ -249,8 +249,15 @@ class LODSolver:
         return ParsedFunction(spec, self.C, self.cfg.dim)
 
     def _t(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a), device=self.device,
-                               dtype=dtype or self.dtype)
+        """The host array ``a`` as a tensor on the solver's device; its
+        bytes count as ``h2d_bytes`` under a profiler, and on the card the
+        copy from pageable memory, which waits, as a host sync."""
+        t = torch.as_tensor(np.asarray(a), device=self.device,
+                            dtype=dtype or self.dtype)
+        count("h2d_bytes", t.nbytes)
+        if t.is_cuda:
+            count("host_syncs", 1)
+        return t
 
     # ------------------------------------------------------------------
     # Right-hand side
@@ -358,6 +365,7 @@ class LODSolver:
         return self._dedup or None
 
     @_full_f32
+    @spanned("basis")
     def compute_basis(self, coefs=None, rows=None):
         """Basis canvases ``self.Phi`` / ``self.APhi`` (P, canvas_n, C, C),
         chunk by chunk (``cfg.patch_chunk`` patches; 0 = all at once).
@@ -368,7 +376,12 @@ class LODSolver:
         reference); fields passed in (``build_step``) are never deduped.
         ``rows`` = (a, b) builds the patches a .. b-1 alone (a rank's
         share of the sharded step), and the canvases are those rows.
-        ``self.basis_patches`` is the number of patches built."""
+        ``self.basis_patches`` is the number of patches built.
+
+        The build is the span ``basis`` (``utils/timers``); on the uniform
+        route the chunk stages ``assemble`` (coefficient windows, then
+        ``basis.prep``), ``patch_solve``, ``stabilize`` and ``canvas``
+        (``basis.uniform_chunk``) tile it."""
         if self.cfg.kernel_mode != "uniform":
             Phi, APhi = classes.compute_basis(
                 self, self.coef_q if coefs is None else coefs, rows)
@@ -392,8 +405,10 @@ class LODSolver:
                  if gsub is None and a % step == 0 and B % step == 0
                  else None)
         if wrows is not None:
-            lattices = {k: basis.coef_lattice(self.cfg, self.grid, coefs[k])
-                        for k in self.coef_names}
+            with span("assemble"):
+                lattices = {k: basis.coef_lattice(self.cfg, self.grid,
+                                                  coefs[k])
+                            for k in self.coef_names}
             win = (2 * self.cfg.oversampling + 1) * self.cfg.n_subdivisions
 
             def windows(lo, hi):
@@ -401,10 +416,11 @@ class LODSolver:
                     L, lo // step, wrows, win, self.cfg.n_subdivisions)
                     for k, L in lattices.items()}
         else:
-            cw = {k: (basis.coef_windows(self.cfg, self.grid, coefs[k],
-                                         rows)
-                      if gsub is None else coefs[k][gsub[a:b]])
-                  for k in self.coef_names}
+            with span("assemble"):
+                cw = {k: (basis.coef_windows(self.cfg, self.grid, coefs[k],
+                                             rows)
+                          if gsub is None else coefs[k][gsub[a:b]])
+                      for k in self.coef_names}
 
             def windows(lo, hi):
                 return {k: v[lo - a:hi - a] for k, v in cw.items()}
@@ -413,11 +429,14 @@ class LODSolver:
         APhi = torch.empty_like(Phi)
         for lo in range(a, b, step):
             hi = min(b, lo + step)
-            Phi[lo - a:hi - a], APhi[lo - a:hi - a] = basis.uniform_chunk(
-                tab, windows(lo, hi), nlo_t[lo:hi], nhi_t[lo:hi],
-                sides_t[lo:hi])
+            with span("assemble"):
+                cw_chunk = windows(lo, hi)
+            basis.uniform_chunk(tab, cw_chunk, nlo_t[lo:hi], nhi_t[lo:hi],
+                                sides_t[lo:hi],
+                                (Phi[lo - a:hi - a], APhi[lo - a:hi - a]))
         if dedup is not None:
-            Phi, APhi = Phi[inv], APhi[inv]
+            with span("canvas"):
+                Phi, APhi = Phi[inv], APhi[inv]
         self.Phi, self.APhi = Phi, APhi
         self.basis_patches = B
         return Phi, APhi
@@ -440,6 +459,7 @@ class LODSolver:
                    * coefs[k].element_size() for k in self.coef_names)
         return rows if full > basis.WINDOW_SLAB_BYTES else None
 
+    @spanned("coarse_op")
     def _stencil_build(self, Phi, APhi, slab=None):
         """A_st from the canvases of every patch, or on a ``stencil_slab``
         its rows from the slab's canvases."""
@@ -498,6 +518,7 @@ class LODSolver:
         return lambda u: stencil.coarse_matvec_with(A_st, gather(u), nbr,
                                                     valid)
 
+    @spanned("cg")
     def _coarse_cg(self, A_st, rhs_c, rows=None, group=None):
         # block-diagonal Jacobi: the C x C centre block's diagonal
         diag = torch.einsum("pdd->pd", A_st[:, self.center_offset_idx])
@@ -517,7 +538,10 @@ class LODSolver:
         """rhs (P, C) -> A_LOD^-1 rhs by one dense Cholesky factor of the
         coarse matrix, made here once, and two triangular solves a call."""
         L = torch.linalg.cholesky(self.coarse_dense_matrix(A_st))
+        if L.is_cuda:
+            count("host_syncs", 1)  # the card's factor checks its result
 
+        @spanned("direct")
         def solve(rhs):
             return cholesky_solve(L, rhs.reshape(-1, 1)).reshape(rhs.shape)
 
@@ -537,6 +561,7 @@ class LODSolver:
         res = self._coarse_cg(A_st, rhs_c, rows, group)
         return res.x, res
 
+    @spanned("coarse_rhs")
     def _coarse_rhs(self, Phi, fem_rhs, rows=None):
         """C^T f: the rhs's canvas windows (zero outside the domain), or
         on the classes route the clipped gather ``fem_rhs[canvas_gidx]``
@@ -551,19 +576,23 @@ class LODSolver:
         return torch.einsum("pncd,pnc->pd", Phi, f_at)
 
     @_full_f32
+    @spanned("coarse_solve")
     def solve_coarse(self):
         """Coarse LOD solve (reference LOD.cc:976-1002): rhs = C^T f, then
         CG with Jacobi on the coarse operator, or the direct solve
         (``coarse_solve="direct"`` below the cap; ``coarse_cg`` None)."""
         rhs_c = self._coarse_rhs(self.Phi, self.fem_rhs)
         self.coarse_rhs = rhs_c
-        self.log(f"     rhs l2 norm = {float(torch.linalg.norm(rhs_c)):.6g}")
+        if self.verbose:
+            self.log(f"     rhs l2 norm = "
+                     f"{float(torch.linalg.norm(rhs_c)):.6g}")
         x, self.coarse_cg = self._solve_coarse_system(self.A_stencil, rhs_c)
         self.coarse_solution = x
         self.log(f"   size of u {x.numel()}")
         return x
 
     @_full_f32
+    @spanned("prolong")
     def prolong_lod_solution(self):
         """lod_solution = C u + g: the u-weighted basis canvases scattered
         onto the fine grid (reference LOD.cc:1251) plus the Dirichlet
@@ -817,8 +846,9 @@ class LODSolver:
             self.assemble_coarse_operator()
         with self.timer.section("4: assemble fine FEM"):
             self.assemble_fine_rhs()
-        self.log(f"     fem rhs l2 norm = "
-                 f"{float(torch.linalg.norm(self.fem_rhs)):.6g}")
+        if self.verbose:
+            self.log(f"     fem rhs l2 norm = "
+                     f"{float(torch.linalg.norm(self.fem_rhs)):.6g}")
 
         results: dict = {}
         exact = self.parse(cfg.exact_solution)
@@ -938,15 +968,18 @@ class LODSolver:
         return functools.partial(self._sharded_step, mesh, axis)
 
     @_full_f32
+    @spanned("step")
     def _step(self, coefs, fem_rhs):
         Phi, _ = self.compute_basis(coefs)
         A_st = self.assemble_coarse_operator()
-        x, res = self._solve_coarse_system(A_st,
-                                           self._coarse_rhs(Phi, fem_rhs))
+        with span("coarse_solve"):
+            x, res = self._solve_coarse_system(
+                A_st, self._coarse_rhs(Phi, fem_rhs))
         self.coarse_solution, self.coarse_cg = x, res
         return x, A_st
 
     @_full_f32
+    @spanned("step")
     def _sharded_step(self, mesh, axis, coefs, fem_rhs):
         """One rank's share of the step over ``mesh``: the basis of its
         patches; the canvases of the patches within 2 l planes of them
@@ -970,8 +1003,9 @@ class LODSolver:
         A_st = self._stencil_build(Phi_s, APhi_s, slabs[r])
         del Phi_s, APhi_s
         self.A_stencil = A_st
-        x, res = self._solve_coarse_system(
-            A_st, self._coarse_rhs(Phi, fem_rhs, rows), rows, group)
+        with span("coarse_solve"):
+            x, res = self._solve_coarse_system(
+                A_st, self._coarse_rhs(Phi, fem_rhs, rows), rows, group)
         self.coarse_solution, self.coarse_cg = x, res
         return tuple(DTensor.from_local(v, mesh, [Shard(0)], run_check=False)
                      for v in (x, A_st))

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from dealii_slod_tpu_torch.utils import kernels
+from dealii_slod_tpu_torch.utils.timers import count
 
 NB = 64          # K1 / K6 panel width (the kernels' tile size)
 GJ_PAD = 128     # K2's size: it takes m <= 128 (the blocked inverse's pivot)
@@ -37,6 +38,10 @@ def _pad_spd(A: torch.Tensor, n: int) -> torch.Tensor:
         Ap[:, :n0, n0:] = 0.0
         idx = torch.arange(n0, n, device=A.device)
         Ap[:, idx, idx] = 1.0
+        if A.is_cuda:
+            # the scalar goes to the card as a pageable copy, which waits
+            count("h2d_bytes", A.element_size())
+            count("host_syncs", 1)
     return Ap
 
 

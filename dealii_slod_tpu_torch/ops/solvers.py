@@ -10,6 +10,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from dealii_slod_tpu_torch.utils.timers import count
+
 
 class CGResult(NamedTuple):
     x: torch.Tensor
@@ -51,7 +53,11 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     rank's rows, ``matvec`` maps the rank's rows to the rank's rows (it
     gathers what it needs itself), and every dot product is summed over
     the group.  The host's stop test reads only those sums, so every rank
-    leaves the loop at the same chunk and none waits in a collective."""
+    leaves the loop at the same chunk and none waits in a collective.
+
+    Under a profiler (``utils/timers``) a call counts ``cg.iterations``
+    (``n_iter``, the device scalar), ``cg.enqueued`` (iterations issued,
+    the masked no-ops included) and ``host_syncs`` (its stop tests)."""
     x = torch.zeros_like(b) if x0 is None else x0
     if precond is None:
         precond = lambda r: r                                    # noqa: E731
@@ -65,9 +71,12 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     n_it = torch.zeros((), dtype=torch.int64, device=b.device)
     done = res0 <= threshold
     k = max(1, check_every)
+    enqueued = syncs = 0
     for _ in range(-(-max_steps // k)):
+        syncs += 1
         if bool(done | (n_it >= max_steps)):
             break
+        enqueued += k
         for _ in range(k):
             active = (~done) & (n_it < max_steps)
             Ap = matvec(p)
@@ -81,6 +90,9 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             rz = torch.where(active, rz_new, rz)
             n_it = n_it + active.to(n_it.dtype)
             done = done | (_dot(r, r, group) <= thr2)
+    count("cg.iterations", n_it)
+    count("cg.enqueued", enqueued)
+    count("host_syncs", syncs)
     return CGResult(x, n_it, torch.sqrt(_dot(r, r, group)), res0, done)
 
 

@@ -10,6 +10,9 @@ a failed load or a non-zero ``cudaGetLastError()`` after a launch raises.
 
 ``launches`` counts, per kernel, the launches that went through ``launch``;
 a run that must show it used the kernels resets it and reads it back.
+Under a profiler each launch is also a ``launch`` span (``utils/timers``)
+with the kernel's name as its ``kernel`` attribute, a leaf under the
+solver stage that launched it.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import subprocess
 from collections import Counter
 
 import torch
+
+from dealii_slod_tpu_torch.utils.timers import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -216,7 +221,7 @@ def launch(name: str, entry: str, dtype: torch.dtype, device: torch.device,
     """Call ``{entry}_{f32|f64}`` on ``device``'s current stream and raise
     on a non-zero ``cudaGetLastError()``; count the launch."""
     fn = getattr(library(), f"{entry}_{suffix(dtype)}")
-    with torch.cuda.device(device):
+    with span("launch", kernel=name), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:

@@ -667,3 +667,50 @@ def test_default_run_gpu_matches_cpu(cuda):
             assert abs(got[name] - v) <= 1e-10 * abs(v), (key, name)
     assert all(kernels.launches[k] > 0 for k in (
         "K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace"))
+
+
+def test_trace_counters_match_the_profilers_trace(cuda, tmp_path):
+    """A traced step on the card (stencil-matvec CG, K1 on padded patch
+    blocks): ``h2d_bytes`` is the trace's host-to-device copy bytes, and
+    ``host_syncs`` its stream synchronisations inside the port's ranges
+    (the CG's stop tests, the pageable uploads)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dealii_slod_tpu_torch.utils import timers
+    cfg = SLODConfig(dim=3, n_global_refinements=2, oversampling=2,
+                     lod_stabilization=True, constant_coefficients=False,
+                     coef_seed=3, dtype="float32", patch_chunk=32,
+                     coarse_dense_cap=8,
+                     coarse_solver=ReductionControl(500, 1e-8, 1e-8))
+    s = pt.LODSolver(cfg, pt.DiffusionProblem(cfg), device=cuda,
+                     verbose=False)
+    s.assemble_fine_rhs()
+    step = s.build_step()
+    step(s.coef_q, s.fem_rhs)
+    torch.cuda.synchronize()
+    timers.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(s.coef_q, s.fem_rhs)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ev = [e for e in json.loads(path.read_text())["traceEvents"]
+          if e.get("ph") == "X"]
+    names = {r.name for r in timers.records()}
+    ranges = [(e["ts"], e["ts"] + e["dur"], e.get("tid")) for e in ev
+              if e.get("cat") == "user_annotation" and e["name"] in names]
+    syncs = sum(1 for e in ev if e["name"] == "cudaStreamSynchronize"
+                and any(a <= e["ts"] < b and t == e.get("tid")
+                        for a, b, t in ranges))
+    h2d = sum(int(e["args"]["bytes"]) for e in ev
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"])
+    c = timers.counters()
+    timers.clear()
+    n = int(s.coarse_cg.n_iter)
+    assert sum(c["h2d_bytes"].values()) == h2d > 0
+    assert sum(c["host_syncs"].values()) == syncs
+    # the stop tests, two stencil tables and one pad per chunk
+    assert syncs == -(-n // 8) + 1 + 2 + 2
