@@ -43,7 +43,8 @@ from dealii_slod_tpu_torch.ops.assembly import (FineOperator,
                                                 assemble_load_vector,
                                                 check_coefs,
                                                 make_subcell_matrices)
-from dealii_slod_tpu_torch.ops.solvers import (cg, cholesky_solve,
+from dealii_slod_tpu_torch.ops.solvers import (GraphPlans, cg,
+                                               cholesky_solve,
                                                dense_dirichlet_solve)
 from dealii_slod_tpu_torch.parallel.mesh import (all_gather_rows,
                                                  check_mesh, exchange_rows,
@@ -244,6 +245,8 @@ class LODSolver:
         self._stencil_tables = None
         self._slab_tables = {}
         self._placement = None
+        self._gather = None
+        self._cg_plans = GraphPlans()
 
     def parse(self, spec):
         return ParsedFunction(spec, self.C, self.cfg.dim)
@@ -513,19 +516,48 @@ class LODSolver:
         if dense:
             Ad = self.coarse_dense_matrix(A_st, rows)
             return lambda u: (Ad @ gather(u).reshape(-1)).reshape(u.shape)
-        nbr = self._t(self.stencil_nbr_np[sl], torch.int64)
-        valid = self._t(self.stencil_valid_np[sl], torch.bool)
+        nbr, valid = self._stencil_gather()
+        nbr, valid = nbr[sl], valid[sl]
         return lambda u: stencil.coarse_matvec_with(A_st, gather(u), nbr,
                                                     valid)
 
+    def _stencil_gather(self):
+        """The stencil matvec's neighbour table (int64) and validity mask
+        (bool) on the device, uploaded at their first use and kept: a
+        graph-captured matvec reads them at fixed addresses."""
+        if self._gather is None:
+            self._gather = (self._t(self.stencil_nbr_np, torch.int64),
+                            self._t(self.stencil_valid_np, torch.bool))
+        return self._gather
+
+    def _cg_plan(self, A_st, device, rows=None, group=None):
+        """The coarse CG's graph plan (``ops/solvers.GraphPlans``: None at
+        an operator's first sight, a plan to capture at its second, the
+        same plan to replay after), on the card's single-rank stencil
+        route only; None everywhere else.  The dense route builds a new
+        matrix every call, and the sharded route's ``all_reduce`` stays
+        eager.  A graph holds the stopping rule and the matmul precision
+        it was captured with, so those are part of the operator's key."""
+        stencil_route = (self.topo.n_patches * self.C
+                         > self.cfg.coarse_dense_cap)
+        if torch.device(device).type != "cuda" or group is not None \
+                or not stencil_route:
+            return None
+        rc = self.cfg.coarse_solver
+        return self._cg_plans.plan(
+            A_st, rows, (rc.max_steps, rc.tolerance, rc.reduce),
+            torch.backends.cuda.matmul.allow_tf32)
+
     @spanned("cg")
     def _coarse_cg(self, A_st, rhs_c, rows=None, group=None):
+        plan = self._cg_plan(A_st, rhs_c.device, rows, group)
         # block-diagonal Jacobi: the C x C centre block's diagonal
         diag = torch.einsum("pdd->pd", A_st[:, self.center_offset_idx])
         rc = self.cfg.coarse_solver
         return cg(self._coarse_matvec_fn(A_st, rows, group), rhs_c,
                   max_steps=rc.max_steps, tolerance=rc.tolerance,
-                  reduce=rc.reduce, precond=lambda r: r / diag, group=group)
+                  reduce=rc.reduce, precond=lambda r: r / diag, group=group,
+                  graph=plan)
 
     def _use_direct_coarse(self) -> bool:
         """``coarse_solve="direct"`` applies up to ``coarse_dense_cap``
@@ -633,8 +665,7 @@ class LODSolver:
         lmax = float(A_st.abs().sum(dim=(1, 3)).max())
         lmin = lmax / 30.0
         theta, delta = 0.5 * (lmax + lmin), 0.5 * (lmax - lmin)
-        nbr = self._t(self.stencil_nbr_np, torch.int64)
-        valid = self._t(self.stencil_valid_np, torch.bool)
+        nbr, valid = self._stencil_gather()
 
         degree = 16
 

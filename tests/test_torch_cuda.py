@@ -673,7 +673,7 @@ def test_trace_counters_match_the_profilers_trace(cuda, tmp_path):
     """A traced step on the card (stencil-matvec CG, K1 on padded patch
     blocks): ``h2d_bytes`` is the trace's host-to-device copy bytes, and
     ``host_syncs`` its stream synchronisations inside the port's ranges
-    (the CG's stop tests, the pageable uploads)."""
+    (the CG's stop tests, the pad's pageable upload)."""
     import json
 
     from torch.profiler import ProfilerActivity, profile
@@ -712,5 +712,75 @@ def test_trace_counters_match_the_profilers_trace(cuda, tmp_path):
     n = int(s.coarse_cg.n_iter)
     assert sum(c["h2d_bytes"].values()) == h2d > 0
     assert sum(c["host_syncs"].values()) == syncs
-    # the stop tests, two stencil tables and one pad per chunk
-    assert syncs == -(-n // 8) + 1 + 2 + 2
+    # the stop tests and one pad per chunk: the stencil tables stay on
+    # the card from the first step's upload
+    assert syncs == -(-n // 8) + 1 + 2
+
+
+def test_coarse_cg_graph_replays_match_eager(cuda):
+    """3D refine-2 l=1 elasticity (C = 3) in float32 on the stencil-matvec
+    CG (``coarse_dense_cap`` below the 192 coarse dofs): three coarse
+    solves on one operator run eagerly, capture, then replay (read from
+    ``cg.graph_iterations``), each with the eager CG's iteration count and
+    answer; two replayed answers are distinct tensors that each match
+    their own eager answer; an in-place change of the operator falls back
+    to an eager solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dealii_slod_tpu_torch.ops.solvers import cg
+    from dealii_slod_tpu_torch.utils import timers
+    cfg = SLODConfig(dim=3, n_global_refinements=2, n_subdivisions=2,
+                     oversampling=1, lod_stabilization=True,
+                     constant_coefficients=False, coef_refinement=3,
+                     dtype="float32", patch_chunk=32, rhs="1; 1; 1",
+                     eig_solver="smallk", patch_solver="fused_split",
+                     coarse_dense_cap=8,
+                     coarse_solver=ReductionControl(500, 1e-6, 1e-6))
+    s = pt.LODSolver(cfg, pt.ElasticityProblem(cfg), device=cuda,
+                     verbose=False)
+    s.assemble_fine_rhs()
+    s.compute_basis()
+    A = s.assemble_coarse_operator()
+    assert s.topo.n_patches * s.C > cfg.coarse_dense_cap
+    rc = cfg.coarse_solver
+
+    def eager(b):
+        diag = torch.einsum("pdd->pd", A[:, s.center_offset_idx])
+        return cg(s._coarse_matvec_fn(A), b, max_steps=rc.max_steps,
+                  tolerance=rc.tolerance, reduce=rc.reduce,
+                  precond=lambda r: r / diag)
+
+    def solve(b):
+        timers.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            res = s._coarse_cg(A, b)
+            torch.cuda.synchronize()
+        c = timers.counters()
+        timers.clear()
+        return res, sum(c.get("cg.graph_iterations", {}).values()), sum(
+            c["cg.enqueued"].values())
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    rhs = [torch.randn(A.shape[0], s.C, device=cuda, generator=gen)
+           for _ in range(5)]
+    answers = []
+    for i, b in enumerate(rhs[:4]):
+        res, graph_it, enq = solve(b)
+        ref = eager(b)
+        assert int(res.n_iter) == int(ref.n_iter) > 8
+        assert rel(res.x, ref.x) <= 1e-6
+        assert bool(res.converged)
+        assert graph_it == (0 if i == 0 else enq) and enq > 0
+        answers.append(res.x)
+    plan = s._cg_plans._plan
+    assert plan is not None and plan.captured
+    statics = {t.data_ptr() for t in plan._state}
+    assert len({x.data_ptr() for x in answers}) == 4
+    assert not statics & {x.data_ptr() for x in answers}
+    assert rel(answers[2], eager(rhs[2]).x) <= 1e-6
+    assert float((answers[2] - answers[3]).abs().max()) > 0
+    A.mul_(1.0)                          # in place: a new operator version
+    res, graph_it, enq = solve(rhs[4])
+    assert graph_it == 0 and enq > 0
+    assert rel(res.x, eager(rhs[4]).x) <= 1e-6
+    assert s._cg_plans._plan is None
