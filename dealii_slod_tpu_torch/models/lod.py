@@ -384,7 +384,10 @@ class LODSolver:
         The build is the span ``basis`` (``utils/timers``); on the uniform
         route the chunk stages ``assemble`` (coefficient windows, then
         ``basis.prep``), ``patch_solve``, ``stabilize`` and ``canvas``
-        (``basis.uniform_chunk``) tile it."""
+        (``basis.uniform_chunk``) tile it.  Where each chunk's windows are
+        cut from the padded lattice, the lattice build and each cut are a
+        ``windows`` span inside ``assemble``, and ``window_bytes`` counts
+        the bytes cut."""
         if self.cfg.kernel_mode != "uniform":
             Phi, APhi = classes.compute_basis(
                 self, self.coef_q if coefs is None else coefs, rows)
@@ -408,16 +411,19 @@ class LODSolver:
                  if gsub is None and a % step == 0 and B % step == 0
                  else None)
         if wrows is not None:
-            with span("assemble"):
+            with span("assemble"), span("windows"):
                 lattices = {k: basis.coef_lattice(self.cfg, self.grid,
                                                   coefs[k])
                             for k in self.coef_names}
             win = (2 * self.cfg.oversampling + 1) * self.cfg.n_subdivisions
 
             def windows(lo, hi):
-                return {k: basis.window_stack_chunk(
-                    L, lo // step, wrows, win, self.cfg.n_subdivisions)
-                    for k, L in lattices.items()}
+                with span("windows"):
+                    cut = {k: basis.window_stack_chunk(
+                        L, lo // step, wrows, win, self.cfg.n_subdivisions)
+                        for k, L in lattices.items()}
+                    count("window_bytes", sum(v.nbytes for v in cut.values()))
+                return cut
         else:
             with span("assemble"):
                 cw = {k: (basis.coef_windows(self.cfg, self.grid, coefs[k],

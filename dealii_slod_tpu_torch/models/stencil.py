@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from dealii_slod_tpu_torch.grid import cartesian_coords, ravel
+from dealii_slod_tpu_torch.utils.timers import count, span
 
 
 def cell_tables(cfg, grid, canvas_dims, stencil_offsets) -> dict:
@@ -237,7 +238,9 @@ def stencil_build_cells(Phi, APhi, tab: dict, n_chunks: int = 1):
     Steps 3-5 run per contiguous chunk of ceil(K / n_chunks) phi slots and
     add into A_st: the K axis is independent through steps 3-4 and the
     indicator product sums over it, so neither T nor G2 is ever whole
-    (``n_chunks`` = 1 builds them whole; the sums agree to rounding)."""
+    (``n_chunks`` = 1 builds them whole; the sums agree to rounding).
+    Each chunk is a ``stencil_chunk`` span and one ``stencil.chunks``
+    count (``utils/timers``)."""
     C = Phi.shape[-1]
     K, K2, O = tab["K"], tab["K2"], tab["O"]
     E, Q = len(tab["own"]), len(tab["shift_rows"][0])      # cells, rows
@@ -254,16 +257,19 @@ def stencil_build_cells(Phi, APhi, tab: dict, n_chunks: int = 1):
     A_st = None
     for k0 in range(0, K, Kc):
         k1 = min(K, k0 + Kc)
-        Tk = Pc[:, k0 * C:k1 * C] @ Ac.mT                  # (E, Kc d, K2 f)
-        G2 = shift_slots(Tk.reshape(E, k1 - k0, -1), tab["shift_rows"], k0)
-        del Tk
-        # (q, k, d, m, f) -> (q, d, f, (k, m)) against the indicator rows
-        # of this K range (the flat row index (k, m) is k-major)
-        G2 = G2.reshape(Q, k1 - k0, C, K2, C).permute(0, 2, 4, 1, 3) \
-            .reshape(Q, C * C, (k1 - k0) * K2)
-        part = G2 @ tab["M3"][k0 * K2:k1 * K2]             # (P, C C, S)
-        del G2
-        A_st = part if A_st is None else A_st.add_(part)
+        with span("stencil_chunk"):
+            count("stencil.chunks", 1)
+            Tk = Pc[:, k0 * C:k1 * C] @ Ac.mT              # (E, Kc d, K2 f)
+            G2 = shift_slots(Tk.reshape(E, k1 - k0, -1), tab["shift_rows"],
+                             k0)
+            del Tk
+            # (q, k, d, m, f) -> (q, d, f, (k, m)) against the indicator
+            # rows of this K range (the flat row index (k, m) is k-major)
+            G2 = G2.reshape(Q, k1 - k0, C, K2, C).permute(0, 2, 4, 1, 3) \
+                .reshape(Q, C * C, (k1 - k0) * K2)
+            part = G2 @ tab["M3"][k0 * K2:k1 * K2]         # (P, C C, S)
+            del G2
+            A_st = part if A_st is None else A_st.add_(part)
     return A_st.mT.reshape(Q, -1, C, C)
 
 
@@ -277,7 +283,10 @@ def stencil_build_cells_planes(Phi, APhi, tab: dict, budget_bytes: int):
     (d, f) are a loop.  The ranges are sized for the tables' global P,
     also on a slab.  Eager execution runs the ranges one after the
     other and ``del`` frees each one's tables before the next: the
-    reference needs optimization barriers for that."""
+    reference needs optimization barriers for that.  Each pair of ranges
+    (an A phi range and a phi range) is a ``stencil_chunk`` span and one
+    ``stencil.chunks`` count; the A phi range's node gather precedes its
+    pairs."""
     P, C = Phi.shape[0], Phi.shape[-1]
     K, K2, O = tab["K"], tab["K2"], tab["O"]
     Q = len(tab["shift_rows"][0])
@@ -301,20 +310,23 @@ def stencil_build_cells_planes(Phi, APhi, tab: dict, budget_bytes: int):
         Ac4 = APhi[:, tab["cnode2"][mlo * O:mhi * O]]
         for kz0 in range(0, kappa, zk):
             klo, khi = kz0 * plane1, min(kappa, kz0 + zk) * plane1
-            Pc4 = Phi[:, tab["cnode1"][klo * O:khi * O]]
-            pc = [side(Pc4, "1", "shift1", klo, khi, d) for d in range(C)]
-            del Pc4
-            M3blk = M3[klo:khi, mlo:mhi].reshape(-1, S)
-            for f in range(C):
-                Ac_f = side(Ac4, "2", "shift2", mlo, mhi, f).mul_(own_oc)
-                for d in range(C):
-                    Tk = pc[d] @ Ac_f.mT                   # (E, kc, mc)
-                    G2 = shift_slots(Tk, tab["shift_rows"], klo)
-                    del Tk
-                    A_st[:, d, f] += G2.reshape(Q, -1) @ M3blk
-                    del G2
-                del Ac_f
-            del pc
+            with span("stencil_chunk"):
+                count("stencil.chunks", 1)
+                Pc4 = Phi[:, tab["cnode1"][klo * O:khi * O]]
+                pc = [side(Pc4, "1", "shift1", klo, khi, d)
+                      for d in range(C)]
+                del Pc4
+                M3blk = M3[klo:khi, mlo:mhi].reshape(-1, S)
+                for f in range(C):
+                    Ac_f = side(Ac4, "2", "shift2", mlo, mhi, f).mul_(own_oc)
+                    for d in range(C):
+                        Tk = pc[d] @ Ac_f.mT               # (E, kc, mc)
+                        G2 = shift_slots(Tk, tab["shift_rows"], klo)
+                        del Tk
+                        A_st[:, d, f] += G2.reshape(Q, -1) @ M3blk
+                        del G2
+                    del Ac_f
+                del pc
         del Ac4
     return A_st.permute(0, 3, 1, 2).contiguous()
 

@@ -24,7 +24,8 @@ torch.set_num_threads(2)
 
 STAGES = {"assemble", "patch_solve", "stabilize", "canvas"}
 NAMES = STAGES | {"step", "basis", "coarse_op", "coarse_solve", "coarse_rhs",
-                  "cg", "direct", "prolong", "launch"}
+                  "cg", "direct", "prolong", "launch", "windows",
+                  "stencil_chunk"}
 
 
 def solver(**kw):
@@ -111,9 +112,10 @@ def test_nothing_recorded_without_a_profiler(slod, monkeypatch):
 
 def test_step_span_tree(slod):
     """Under a profiler the step's spans form the stage tree: ``step`` over
-    ``basis`` (tiled by the four chunk stages), ``coarse_op`` and
-    ``coarse_solve`` (``coarse_rhs``, then ``cg``); ``prolong`` a root of
-    its own; every span of the step carries the step's id as its root."""
+    ``basis`` (tiled by the four chunk stages), ``coarse_op`` (its one
+    ``stencil_chunk``: this grid builds A_st whole) and ``coarse_solve``
+    (``coarse_rhs``, then ``cg``); ``prolong`` a root of its own; every
+    span of the step carries the step's id as its root."""
     with traced():
         slod.build_step()(slod.coef_q, slod.fem_rhs)
         slod.prolong_lod_solution()
@@ -125,7 +127,8 @@ def test_step_span_tree(slod):
         "step/basis/assemble": 1 + 2 * n_chunks,
         "step/basis/patch_solve": n_chunks,
         "step/basis/stabilize": n_chunks, "step/basis/canvas": n_chunks,
-        "step/coarse_op": 1, "step/coarse_solve": 1,
+        "step/coarse_op": 1, "step/coarse_op/stencil_chunk": 1,
+        "step/coarse_solve": 1,
         "step/coarse_solve/coarse_rhs": 1, "step/coarse_solve/cg": 1,
         "prolong": 1}
     step = next(r for r in recs if r.name == "step")
