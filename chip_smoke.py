@@ -50,7 +50,8 @@ Phases (each prints its numbers; any failure exits non-zero):
    sweep) on a real 128-pivot of T and of G + delta I, K4 / K5 at the
    float32 path's shapes (all 384 Grams of the chunk, k = 32: K5's
    warp-per-matrix routine; K6's float32 gate on the leaves of every
-   chunk of the configuration, K7's on every chunk's X), and K4 / K5 at
+   chunk of the configuration, K1's on the whole block of every chunk
+   (the card's float32 route), K7's on every chunk's X), and K4 / K5 at
    the float64 path's Gram size (n = 375, k = 374: K4's global-memory
    columns, K5's thread-block cluster, held in float64 only, the one
    dtype that runs them; K5 on 4 of the W against the plain version, its
@@ -60,8 +61,13 @@ Phases (each prints its numbers; any failure exits non-zero):
    refine-3 step); K8 at the float32 path's shape (384, 32, 375) and, in
    float64, at k = 374 (a cluster per W, no workspace: 4 W compared and
    timed, the eigenvalues of all 384 against the plain version's), each
-   with the route it took; K1 on the whole 2187 block is timed beside the
-   split, for the record;
+   with the route it took; the float64 configuration must resolve to the
+   Schur split (the reference's rule) and the float32 one to K1 on the
+   whole block (the card's rule); K1 on the whole 2187 block, factored in
+   place on its padded operand, is timed beside the split on the chunk,
+   and both routes' per-chunk times are printed side by side at the two
+   padded-2240 blocks (3D l=2 elasticity, 3D l=3 diffusion:
+   ``patch_route_times``, which set ``K1_WHOLE_MAX_N``);
 5. e2e-f64: small steps in float64 on the CPU (plain versions) and on the
    card (kernels): 3D refine-2 l=1 diffusion on the Jacobi and on the
    smallk route, and 3D refine-2 l=1 elasticity on the Schur split; u and
@@ -82,9 +88,10 @@ Phases (each prints its numbers; any failure exits non-zero):
    its field against ``main-f64``'s (``WEIG_FIELD_BOUND``);
 9. elasticity: ``BENCH_PROBLEM=elasticity``'s configuration (the main
    one with C = 3 components, Lame fields lam / mu, rhs "1; 1; 1"):
-   ``patch_solver="auto"`` must resolve to the Schur split and the
-   spectral stage to smallk; one first call and 2 timed calls, K2, K4,
-   K5, K6, K7 launched as often as the code path implies; then refine-3
+   ``patch_solver="auto"`` must resolve to K1 on the whole block (the
+   card's float32 rule) and the spectral stage to smallk; one first call
+   and 2 timed calls, K1, K2, K4, K5, K7 launched as often as the code
+   path implies; then refine-3
    l=2 (512 patches) in float32 and in float64 (K4 on global columns, K5
    on a thread-block cluster per W), and the same two with
    ``smallk_weig=True`` (K8 four times a step, no K5; each field against
@@ -162,8 +169,9 @@ Phases (each prints its numbers; any failure exits non-zero):
    to ``R5_F32_FEM_BOUND``; with ``--profile``, its first call split
    into its parts),
    ``r5-elasticity`` (the same grid with C = 3; the plane-chunked coarse
-   build, no float64 twin), ``l3-diffusion`` (refine-4, l = 3: the Schur
-   split at C = 1) and ``l3-elasticity-r3`` (refine-3, l = 3, chunks of
+   build, no float64 twin), ``l3-diffusion`` (refine-4, l = 3: K1 on the
+   whole 2197 block in float32, the Schur split at C = 1 in float64) and
+   ``l3-elasticity-r3`` (refine-3, l = 3, chunks of
    32: the per-patch Cholesky solve), each l = 3 path within 1e-2 of its
    float64 twin on the eigh stage; per path the routes, the stencil build
    the byte rule picks (whole / K-chunked / planes) and its wall, and
@@ -173,8 +181,8 @@ Phases (each prints its numbers; any failure exits non-zero):
    (1e-12), each build's wall and memory; the kernels at the new shapes
    against their plain versions (K6 at the l = 3 leaves, K2 on pivots of
    the 343 and 1029 T, K3 / K7 at 343 / 1029 columns, K4 at (343, 32)
-   and (1029, 32)) and K6's / K3's float32 gates on every chunk of
-   l3-diffusion.  The el-kernels phase also reads K6's / K7's gates on
+   and (1029, 32)) and K6's / K1's / K3's float32 gates on every chunk
+   of l3-diffusion.  The el-kernels phase also reads K6's / K7's gates on
    every chunk of the elasticity configuration with lognormal Lame
    fields, and K8's on every chunk of the 4096-patch elasticity weig
    step;
@@ -183,7 +191,7 @@ Phases (each prints its numbers; any failure exits non-zero):
    path's step through ``build_step(make_mesh(1))`` at world size 1 over
    NCCL against ``build_step()`` in the same process; at world size 2
    over gloo, both ranks on cuda:0, the main step and the 4096-patch
-   elasticity step (Schur split: K6 / K7 / K2 / K4 / K5), gathered on
+   elasticity step (K1 on the whole block / K7 / K2 / K4 / K5), gathered on
    rank 0 and held to the single-card steps of this process (A_st 1e-4,
    u 1e-3 relative: the JAX dry run's bounds, ``__graft_entry__.py``),
    and the sample-sharded sweep on 4 of the Monte-Carlo configuration's
@@ -252,10 +260,16 @@ SOURCE = {
     "K8 weig": ("dealii_slod_tpu_torch/csrc/jacobi_eigh.cu",
                 "dealii_slod_tpu/ops/eig.py:524", "weig"),
 }
+# elasticity in float64 on the Schur split (K6 leaves); in float32 on the
+# card K1 takes the whole block (``_K1``)
 _ELASTIC = ("K2 gj_inverse", "K4 mgs_qr", "K5 jacobi_eigh",
             "K6 spd_multirhs_solve", "K7 stencil_trace")
 _ELASTIC_WEIG = ("K2 gj_inverse", "K4 mgs_qr", "K6 spd_multirhs_solve",
                  "K7 stencil_trace", "K8 weig")
+_ELASTIC_K1 = ("K1 fused_spd_multirhs", "K2 gj_inverse", "K4 mgs_qr",
+               "K5 jacobi_eigh", "K7 stencil_trace")
+_ELASTIC_WEIG_K1 = ("K1 fused_spd_multirhs", "K2 gj_inverse", "K4 mgs_qr",
+                    "K7 stencil_trace", "K8 weig")
 _MAIN = ("K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace",
          "K4 mgs_qr", "K5 jacobi_eigh")
 _WEIG = ("K1 fused_spd_multirhs", "K2 gj_inverse", "K3 stencil_trace",
@@ -265,18 +279,18 @@ PATH_KERNELS = {
                "K5 jacobi_eigh"),
     "main": _MAIN,
     "weig": _WEIG,
-    "elasticity": _ELASTIC,
-    "elasticity-r3-f32": _ELASTIC,
+    "elasticity": _ELASTIC_K1,
+    "elasticity-r3-f32": _ELASTIC_K1,
     "elasticity-r3-f64": _ELASTIC,
     "main-f64": _MAIN,
     "weig-f64": _WEIG,
-    "elasticity-r3-weig-f32": _ELASTIC_WEIG,
+    "elasticity-r3-weig-f32": _ELASTIC_WEIG_K1,
     "elasticity-r3-weig-f64": _ELASTIC_WEIG,
     # LODSolver.run(): plain LOD and the eigh stage skip K4 / K5
     "run-2d-default": _MAIN[:3],
     "run-plain-f64": _MAIN[:3],
     "run-slod-eigh-f64": _MAIN[:3],
-    "run-elasticity": _ELASTIC,
+    "run-elasticity": _ELASTIC_K1,
     "run-cli": _MAIN[:3],
     # the routes phase: the classes route runs no kernel; the uniform
     # default route at refine-3 f64 runs the eigh stage (no K4 / K5); the
@@ -307,13 +321,13 @@ PATH_KERNELS = {
     "monte-carlo-random": _MAIN,
     "sweep-f32": _MAIN,
     # the scale phase: refine-5 on the main and the elasticity routes; l = 3
-    # diffusion on the Schur split (K6 leaves at C = 1) and l = 3
-    # elasticity on the per-patch Cholesky solve (no K1 / K6); their
-    # float64 twins on the eigh stage skip K4 / K5
+    # diffusion on K1 whole (float32; its float64 twin on the Schur split,
+    # K6 leaves at C = 1) and l = 3 elasticity on the per-patch Cholesky
+    # solve (no K1 / K6); their float64 twins on the eigh stage skip K4 / K5
     "r5-diffusion": _MAIN,
     "r5-diffusion-f64": _MAIN,
-    "r5-elasticity": _ELASTIC,
-    "l3-diffusion": _MAIN[1:] + ("K6 spd_multirhs_solve",),
+    "r5-elasticity": _ELASTIC_K1,
+    "l3-diffusion": _MAIN,
     "l3-diffusion-eigh-f64": ("K2 gj_inverse", "K3 stencil_trace",
                               "K6 spd_multirhs_solve"),
     "l3-elasticity-r3": ("K2 gj_inverse", "K4 mgs_qr", "K5 jacobi_eigh",
@@ -324,7 +338,7 @@ PATH_KERNELS = {
 PATH_KERNELS["r5-diffusion-f64-f32-rule"] = _MAIN
 # the shard phase: the main and the elasticity route on each rank's share
 PATH_KERNELS.update({"shard-main-ws1": _MAIN, "shard-main-ws2": _MAIN,
-                     "shard-elasticity-ws2": _ELASTIC,
+                     "shard-elasticity-ws2": _ELASTIC_K1,
                      "shard-sweep-ws2": _MAIN, "shard-mc": _MAIN})
 # a sharded step against the single-card step: the JAX dry run's bounds
 # (__graft_entry__.py:82-83), relative max differences
@@ -617,6 +631,15 @@ def chunk_inputs(elastic=False, chunk=128, reaction=False):
     print(f"[kernels] chunk of patches {p0}..{p0 + chunk - 1} of "
           f"{s.topo.n_patches} ({which})")
     return s, tab, cw, lo, hi, sd
+
+
+def prep_block(tab, cw, lo, hi):
+    """``basis.prep`` with A cut to its leading (nI, nI) block: where the
+    tables assemble K1's padded operand (the card's "fused" route), the
+    phases compare the block itself."""
+    from dealii_slod_tpu_torch.models import basis
+    band, A, PT_m, cvd = basis.prep(tab, cw, lo, hi)
+    return band, A[:, :tab.nI, :tab.nI], PT_m, cvd
 
 
 def jacobi_sweep_counts(G, sweeps, tol, null_rel):
@@ -1037,11 +1060,12 @@ def spmm_check(name, lib, band, Xp, tab):
           "function")
 
 
-def f32_gate_all_chunks(s, tab, name, chunk=128, solve=None):
+def f32_gate_all_chunks(s, tab, name, chunk=128, solve=None, split=None):
     """The float32 gate of ``check_case`` (error against the float64 plain
     version <= 4x the float32 plain version's + 1e-6) on the real
-    operators of every chunk of the configuration: K1's X and T, or, on
-    the elasticity configuration, K6's X at every leaf of the Schur split;
+    operators of every chunk of the configuration: K1's X and T, or,
+    where the solver ``s`` takes the Schur split (``split`` None) or
+    ``split`` is True, K6's X at every leaf of the split;
     and the trace (K3, or K7) on the chunk's band and the X that solve
     gives (the split's X assembled from its plain leaves).  With ``solve``
     (A, B) -> (X, T) in place of K1 (the panel route), that solve's X and
@@ -1050,7 +1074,8 @@ def f32_gate_all_chunks(s, tab, name, chunk=128, solve=None):
     import torch
     from dealii_slod_tpu_torch.models import basis
     from dealii_slod_tpu_torch.ops import assembly, patch_solve
-    split = s.solver_mode == "fused_split"
+    if split is None:
+        split = s.solver_mode == "fused_split"
     full = {k: basis.coef_windows(s.cfg, s.grid, s.coef_q[k])
             for k in tab.coef_names}
     _, nlo, nhi, _ = s._uniform_inputs()
@@ -1066,7 +1091,7 @@ def f32_gate_all_chunks(s, tab, name, chunk=128, solve=None):
 
     for p0 in range(0, s.topo.n_patches, chunk):
         sel = slice(p0, p0 + chunk)
-        band, A, PT_m, _ = basis.prep(
+        band, A, PT_m, _ = prep_block(
             tab, {k: v[sel] for k, v in full.items()},
             torch.as_tensor(nlo[sel], device="cuda"),
             torch.as_tensor(nhi[sel], device="cuda"))
@@ -1125,7 +1150,7 @@ def phase_kernels(card):
     from dealii_slod_tpu_torch.ops import assembly, eig, patch_solve
 
     s, tab, cw, lo, hi, sd = chunk_inputs()
-    band, A, PT_m, cvd = basis.prep(tab, cw, lo, hi)
+    band, A, PT_m, cvd = prep_block(tab, cw, lo, hi)
     X64, Traw = patch_solve.fused_spd_multirhs_plain(A, PT_m)
     T = Traw / tab.Hdim + torch.diag_embed(1.0 - cvd)
     Tinv = patch_solve.gj_inverse_plain(T)
@@ -1387,6 +1412,71 @@ def lognormal_elasticity_gates():
     print(f"[kernels]   ({time.perf_counter() - t0:.1f} s)")
 
 
+def k1_in_place_ms(Ap, B, reps=3):
+    """CUDA-event ms of K1 on the padded operand ``Ap`` factored in place
+    (the card's "fused" route): each call on a fresh copy made outside the
+    timed span."""
+    import torch
+    from dealii_slod_tpu_torch.ops import patch_solve
+    patch_solve.fused_spd_multirhs(Ap.clone(), B, in_place=True)
+    total = 0.0
+    for _ in range(reps):
+        a = Ap.clone()
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        patch_solve.fused_spd_multirhs(a, B, in_place=True)
+        t1.record()
+        torch.cuda.synchronize()
+        total += t0.elapsed_time(t1)
+        del a
+    return total / reps
+
+
+# the two blocks of padded n 2240 that the port runs: (n, k, what)
+ROUTE_SHAPES = [(2187, 375, "3D l=2 elasticity"),
+                (2197, 343, "3D l=3 diffusion")]
+
+
+def patch_route_times(card, P=128, dtype=None):
+    """Per-chunk times of the two patch-solve routes beside each other at
+    each block of ``ROUTE_SHAPES``, in ``dtype`` (float32 by default),
+    128 patches of seeded SPD blocks (the factor's work does not depend on the values): K1 on the
+    whole block factored in place on its padded operand, and the Schur
+    split on K6 leaves (``fused_spd_multirhs_split``).  Both X against a
+    float64 Cholesky solve.  These set ``models/lod.py: K1_WHOLE_MAX_N``."""
+    import torch
+    from dealii_slod_tpu_torch.ops import patch_solve
+    dtype = dtype or torch.float32
+    tag = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for n0, k0, what in ROUTE_SHAPES:
+        n = patch_solve.k1_operand_n(n0)
+        M = torch.randn((P, n0, n0), generator=gen, device="cuda",
+                        dtype=dtype)
+        A = M @ M.mT / n0 + torch.eye(n0, device="cuda", dtype=dtype)
+        del M
+        B = torch.randn((P, n0, k0), generator=gen, device="cuda",
+                        dtype=dtype)
+        Ap = patch_solve._pad_spd(A, n)
+        ms_whole = k1_in_place_ms(Ap, B)
+        ms_split = cuda_ms(lambda: patch_solve.fused_spd_multirhs_split(
+            A, B), 3)
+        ref = torch.cholesky_solve(B.double(), torch.linalg.cholesky(
+            A.double()))
+        e_whole = rel(patch_solve.fused_spd_multirhs(Ap.clone(), B,
+                                                     in_place=True)[0], ref)
+        e_split = rel(patch_solve.fused_spd_multirhs_split(A, B)[0], ref)
+        leaves = patch_solve.split_leaves(n0, k0, 128)
+        print(f"[routes] {what} ({P}, {n0} -> {n}, k {k0}), {tag}, per "
+              f"chunk: "
+              f"K1 whole block in place {ms_whole:.3f} ms (X err "
+              f"{e_whole:.3e}) | Schur split, K6 leaves {leaves} "
+              f"{ms_split:.3f} ms (X err {e_split:.3e}) | split / whole "
+              f"{ms_split / ms_whole:.3f} [{card}]", flush=True)
+        del A, B, Ap, ref
+
+
 def phase_el_kernels(card):
     """On the middle 128-patch chunk of the 3D elasticity configuration:
     K6 at each split leaf, K7, K2 on a real pivot of T and of G + delta I,
@@ -1397,12 +1487,18 @@ def phase_el_kernels(card):
     import numpy as np
     import torch
     from dealii_slod_tpu_torch.models import basis
+    from dealii_slod_tpu_torch.models.lod import patch_solver_mode
     from dealii_slod_tpu_torch.ops import assembly, eig, patch_solve
 
     s, tab, cw, lo, hi, sd = chunk_inputs(elastic=True)
-    check(s.solver_mode == "fused_split", f"3D elasticity resolved to "
-          f"patch_solver {s.solver_mode!r}, not 'fused_split'")
-    band, A, PT_m, cvd = basis.prep(tab, cw, lo, hi)
+    card_f32 = patch_solver_mode(elastic_cfg("float32"), s.C,
+                                 s.canvas_class, "cuda")
+    check(s.solver_mode == "fused_split" and card_f32 == "fused",
+          f"3D elasticity resolved to patch_solver {s.solver_mode!r} in "
+          f"float64 and {card_f32!r} in float32 on the card, not "
+          "'fused_split' (the reference's rule) and 'fused' (K1 on the "
+          "whole block, the card's rule)")
+    band, A, PT_m, cvd = prep_block(tab, cw, lo, hi)
     B, C, nN = band.shape[0], tab.C, tab.n_nodes
     (X64, Traw), leaves = split_leaf_operands(A, PT_m, tab.panel_nb)
     shapes = [(a.shape[-1], b.shape[-1]) for a, b in leaves]
@@ -1441,6 +1537,8 @@ def phase_el_kernels(card):
                      "bound_ms_3xtf32")
     del leaves
     f32_gate_all_chunks(s, tab, "K6 spd_multirhs_solve")
+    # the card's float32 route: K1 on the whole block of every chunk
+    f32_gate_all_chunks(s, tab, "K1 fused_spd_multirhs", split=False)
     lognormal_elasticity_gates()
     k7_lib = trace_spmm(band.float(), nNp, tab.shiftN, tab.offs_flat)
     check_case(
@@ -1467,19 +1565,28 @@ def phase_el_kernels(card):
         lambda a: by(B * 2 * m ** 3, B * f4 * 2 * m * m),
         lambda a: torch.linalg.inv(a), path="elasticity")
 
-    # K1 on the whole (2187 -> 2240) block, for the record beside the split
+    # K1 on the whole (2187 -> 2240) block, factored in place on the padded
+    # operand the card's float32 route assembles, beside the split
     A32, P32 = A.float(), PT_m.float()
-    ms_whole = cuda_ms(lambda: patch_solve.fused_spd_multirhs(A32, P32), 1)
+    Ap32 = basis.prep(dataclasses.replace(
+        tab, k1_n=patch_solve.k1_operand_n(tab.nI)), cw, lo, hi)[1].float()
+    check(torch.equal(Ap32[:, :tab.nI, :tab.nI], A32),
+          "the padded operand's leading block is not the patch block")
+    ms_whole = k1_in_place_ms(Ap32, P32)
     ms_split = cuda_ms(lambda: patch_solve.fused_spd_multirhs_split(
         A32, P32, nb=tab.panel_nb), 1)
-    e_whole = rel(patch_solve.fused_spd_multirhs(A32, P32)[0], X64)
+    e_whole = rel(patch_solve.fused_spd_multirhs(Ap32.clone(), P32,
+                                                 in_place=True)[0], X64)
     e_split = rel(patch_solve.fused_spd_multirhs_split(
         A32, P32, nb=tab.panel_nb)[0], X64)
     print(f"[kernels] patch solve of the elasticity chunk, f32: K1 on the "
-          f"whole block {ms_whole:.3f} ms (X err {e_whole:.3e}); Schur "
-          f"split on K6 leaves {ms_split:.3f} ms (X err {e_split:.3e}) "
-          f"[{card}]")
-    del A32, P32, A, X64
+          f"whole block in place {ms_whole:.3f} ms (X err {e_whole:.3e}); "
+          f"Schur split on K6 leaves {ms_split:.3f} ms (X err "
+          f"{e_split:.3e}) [{card}]")
+    del A32, P32, Ap32, A, X64
+    patch_route_times(card)
+    # float64 stays on the reference's rule (the split) on the card
+    patch_route_times(card, dtype=torch.float64)
 
     # the smallk stage's operands on all B C Grams of the chunk, from the
     # plain f64 chain, for the float32 path (k = 32, jitter 1e-6) and the
@@ -1874,9 +1981,10 @@ def phase_elasticity(profile=False):
     returns the per-path numbers by path."""
     s, out = run_path("elasticity", elastic_cfg("float32"), timed=2,
                       profile=profile, elastic=True)
-    check(s.solver_mode == "fused_split" and s.spec_mode == "smallk",
+    check(s.solver_mode == "fused" and s.spec_mode == "smallk",
           f"elasticity resolved to patch solver {s.solver_mode!r} and "
-          f"spectral stage {s.spec_mode!r}, not 'fused_split' / 'smallk'")
+          f"spectral stage {s.spec_mode!r}, not 'fused' (K1 on the whole "
+          "block) / 'smallk'")
     paths, fields = {"elasticity": out}, {}
     del s
     for weig in ("", "weig-"):
@@ -2106,13 +2214,14 @@ def phase_run():
           "run-slod-eigh-f64: the card's and the CPU's eigh routes disagree")
     del f_cpu, f_gpu
 
-    # 4. elasticity (float32, SLOD, smallk, Schur split): the stencil
+    # 4. elasticity (float32, SLOD, smallk, K1 on the whole block): the stencil
     # two-level preconditioner and the coarse FEM's CG branch
     s, out, paths["run-elasticity"] = run_solver(
         "run-elasticity", elastic_cfg("float32", **fine), elastic=True)
     check(s.topo.n_patches * s.C > s.cfg.two_level_dense_cap
-          and s.solver_mode == "fused_split" and s.spec_mode == "smallk",
-          "run-elasticity: not the stencil two-level / split / smallk route")
+          and s.solver_mode == "fused" and s.spec_mode == "smallk",
+          "run-elasticity: not the stencil two-level / whole-block K1 / "
+          "smallk route")
     check("error_FEMH_FEMh" in out and s.coarse_fem_solution.numel() > 6000,
           "run-elasticity: the coarse FEM comparison did not take its CG "
           "branch")
@@ -2450,7 +2559,7 @@ def reaction_kernel_rows(card):
     from dealii_slod_tpu_torch.ops import assembly, patch_solve
 
     _, tab, cw, lo, hi, _ = chunk_inputs(reaction=True)
-    band, A, PT_m, _ = basis.prep(tab, cw, lo, hi)
+    band, A, PT_m, _ = prep_block(tab, cw, lo, hi)
     Xp = trace_operand(tab, patch_solve.fused_spd_multirhs_plain(A, PT_m)[0])
     B, n, kk = A.shape[0], A.shape[-1], PT_m.shape[-1]
     nN, n_off, nNp = band.shape[1], band.shape[2], Xp.shape[2]
@@ -2751,10 +2860,10 @@ def scale_paths():
                          None, ("fused", "smallk"), ("cells", 4), True),
         # VERDICT missing #2: refine-5 3D elasticity
         "r5-elasticity": (elastic_cfg("float32", **r5), True, None, None,
-                          ("fused_split", "smallk"), ("planes", 1, 1), True),
+                          ("fused", "smallk"), ("planes", 1, 1), True),
         "l3-diffusion": (bench_cfg("float32", oversampling=3), False,
                          bench_cfg("float64", eig_solver="lapack", **l3),
-                         1e-2, ("fused_split", "smallk"), ("cells", 3),
+                         1e-2, ("fused", "smallk"), ("cells", 3),
                          True),
         # BASELINE.json configs[4] at one card's scale
         "l3-elasticity-r3": (elastic_cfg("float32", **l3e), True,
@@ -2853,7 +2962,7 @@ def scale_kernel_rows(card):
               for k in tab.coef_names}
         lo, hi, sd = (torch.as_tensor(a[sel], device="cuda")
                       for a in (nlo, nhi, sides))
-        band, A, PT_m, cvd = basis.prep(tab, cw, lo, hi)
+        band, A, PT_m, cvd = prep_block(tab, cw, lo, hi)
         B, C, cD, nN = band.shape[0], tab.C, tab.cD, tab.n_nodes
         print(f"[scale] {path} chunk of patches {p0}..{p0 + chunk - 1}: A "
               f"({B}, {A.shape[-1]}, {A.shape[-1]}), PT ({B}, "
@@ -3226,8 +3335,12 @@ def phase_scale(card, profile=False):
     t0 = time.perf_counter()
     sg = make_solver(bench_cfg("float64", eig_solver="smallk",
                                oversampling=3), False)
-    print("[scale] K6 / K3 float32 gates on every chunk of l3-diffusion:")
+    print("[scale] K6 / K1 / K3 float32 gates on every chunk of "
+          "l3-diffusion:")
     f32_gate_all_chunks(sg, sg._uniform_tables(), "K6 spd_multirhs_solve")
+    # the card's float32 route: K1 on the whole (2197 -> 2240) block
+    f32_gate_all_chunks(sg, sg._uniform_tables(), "K1 fused_spd_multirhs",
+                        split=False)
     del sg
     print(f"[scale]   ({time.perf_counter() - t0:.1f} s)")
     print(f"[scale] phase done in {time.perf_counter() - t_phase:.1f} s")
@@ -3446,8 +3559,8 @@ def phase_shard(card):
             r["cg"] is None or r["cg"][1] for r in ranks),
             f"{path}: a rank's coarse CG did not converge")
     el = ws2[0]["shard-elasticity-ws2"]
-    check(el["solver_mode"] == "fused_split" and el["spec_mode"] == "smallk",
-          "shard-elasticity-ws2: not the Schur split and smallk")
+    check(el["solver_mode"] == "fused" and el["spec_mode"] == "smallk",
+          "shard-elasticity-ws2: not K1 on the whole block and smallk")
 
     t0 = time.perf_counter()
     mc = env_run(lambda: monte_carlo.main([]), **mc_env, MC_SHARD="2")

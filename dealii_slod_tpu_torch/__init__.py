@@ -17,9 +17,11 @@ and linear elasticity (C = dim components), plain LOD
 (``SLODConfig()``'s default) or SLOD, on
 the reference's knobs: ``eig_solver="auto"`` is the smallk spectral stage
 on the card in float32 and the ``eigh`` stage ("lapack") elsewhere, also
-"smallk", "jacobi", "lapack" / "lax"; ``patch_solver="auto"`` applies the
-reference's size rule (the fused patch solve, its 2x2 Schur split where
-the block is too large, as 3D elasticity's), also "lax" (the per-patch
+"smallk", "jacobi", "lapack" / "lax"; ``patch_solver="auto"`` is the
+fused patch solve on the whole block on the card in float32 (up to
+``models.lod.K1_WHOLE_MAX_N``) and elsewhere the reference's size rule
+(the fused patch solve, its 2x2 Schur split where the block is too
+large, as 3D elasticity's), also "fused_split", "lax" (the per-patch
 Cholesky solve) and "panel"; ``kernel_mode="classes"``,
 ``assembly_mode="scatter"``, ``trace_kernel="off"`` and
 ``coarse_solve="direct"``; basis checkpoints (``utils/checkpoint.py``),

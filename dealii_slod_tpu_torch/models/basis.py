@@ -58,6 +58,7 @@ from dealii_slod_tpu_torch.ops.eig import (_truncation_scan,
 from dealii_slod_tpu_torch.ops.patch_solve import (fused_spd_multirhs,
                                                    fused_spd_multirhs_plain,
                                                    fused_spd_multirhs_split,
+                                                   k1_operand_n,
                                                    panel_spd_multirhs,
                                                    spd_inverse_schur)
 from dealii_slod_tpu_torch.utils.timers import count, span
@@ -90,6 +91,9 @@ class UniformTables:
     solver_mode: str            # "fused" (K1), "fused_split" (K6 leaves),
                                 # "panel" (K2 diagonal blocks) or "lax"
                                 # (per-patch Cholesky)
+    k1_n: int                   # prep's A_solve: K1's padded (B, k1_n,
+                                # k1_n) operand, factored in place (the
+                                # card's "fused" route), or 0: (B, nI, nI)
     panel_nb: int               # split rule / panel block size
     scatter: bool               # assembly_mode "scatter": dense rows
     trace_kernel: bool          # K3 / K7 (else the plain scan, "off")
@@ -149,6 +153,9 @@ def uniform_tables(cfg, grid, et, sc, center_cell, device, dtype,
         dim=dim, s=s, C=C, n_nodes=sc.n_nodes_local,
         cD=sc.n_coarse_dofs_local, n_int=len(sc.interior_nodes),
         nI=len(sc.interior_nodes) * C, solver_mode=solver_mode,
+        k1_n=(k1_operand_n(len(sc.interior_nodes) * C)
+              if solver_mode == "fused" and torch.device(device).type
+              == "cuda" else 0),
         panel_nb=cfg.panel_nb, scatter=cfg.assembly_mode != "banded",
         trace_kernel=cfg.trace_kernel in ("auto", "on"),
         Hdim=grid.H ** dim, thr=cfg.svd_threshold, sweeps=cfg.eig_sweeps,
@@ -191,8 +198,9 @@ def prep(tab: UniformTables, coefs, nlo, nhi):
     ``assembly_mode="scatter"`` the dense interior rows A_rows_I (B, nI,
     nD)), ``A_solve`` (B, nI, nI) the window-interior SPD block
     (row-cleared reference operator, unit diagonal on masked rows,
-    LOD.cc:537-546), ``PT_m`` (B, nI, cD) and the coarse-dof validity
-    ``cvd`` (B, cD)."""
+    LOD.cc:537-546; where ``tab.k1_n`` is set, assembled as K1's padded
+    operand (B, k1_n, k1_n), ``ops/assembly.py: bands_to_dense_mm``),
+    ``PT_m`` (B, nI, cD) and the coarse-dof validity ``cvd`` (B, cD)."""
     dt, C = tab.PT.dtype, tab.C
     in_sub = _inside(tab.sub_coords, nlo, nhi - 1, strict=False)
     coefs = {k: coefs[k] * in_sub[..., None].to(dt) for k in tab.coef_names}
@@ -214,7 +222,7 @@ def prep(tab: UniformTables, coefs, nlo, nhi):
     band_s = band_I * (m[:, :, None] * nb_in)[..., None, None]
     eye = torch.eye(C, dtype=dt, device=band.device)
     band_s[:, :, tab.center_o] += eye * (1.0 - m)[:, :, None, None]
-    A_solve = bands_to_dense_mm(band_s, *tab.placement)
+    A_solve = bands_to_dense_mm(band_s, *tab.placement, n=tab.k1_n or None)
     return band, A_solve, PT_m, cvd
 
 
@@ -222,16 +230,25 @@ def _prep_scatter(tab: UniformTables, coefs, m_d):
     """The scatter assembly's operators (``assembly_mode="scatter"``): the
     subcell matrices scatter-added into the dense canvas stiffness, its
     interior rows A_rows_I (B, nI, nD) and the masked interior block
-    A_solve (B, nI, nI)."""
+    A_solve (B, nI, nI), or K1's padded operand (B, k1_n, k1_n) where
+    ``tab.k1_n`` is set (the block written into its leading corner)."""
     Ksub = make_subcell_matrices(tab.et, coefs)
-    B, nD = Ksub.shape[0], tab.n_nodes * tab.C
+    B, nD, nI = Ksub.shape[0], tab.n_nodes * tab.C, tab.nI
     A = assemble_dense_batch(Ksub, tab.flat_idx, nD)
     rows = A.reshape((B,) + tab.grid_rev + (tab.C, nD))[tab.inner]
-    rows = rows.reshape(B, tab.nI, nD)
-    A_II = rows.reshape((B, tab.nI) + tab.grid_rev + (tab.C,))[
-        (slice(None),) + tab.inner].reshape(B, tab.nI, tab.nI)
-    A_solve = (A_II * m_d[:, :, None] * m_d[:, None, :]
-               + torch.diag_embed(1.0 - m_d))
+    rows = rows.reshape(B, nI, nD)
+    A_II = rows.reshape((B, nI) + tab.grid_rev + (tab.C,))[
+        (slice(None),) + tab.inner].reshape(B, nI, nI)
+    if not tab.k1_n:
+        A_solve = (A_II * m_d[:, :, None] * m_d[:, None, :]
+                   + torch.diag_embed(1.0 - m_d))
+        return rows, A_solve
+    A_solve = A_II.new_zeros((B, tab.k1_n, tab.k1_n))
+    torch.mul(A_II * m_d[:, :, None], m_d[:, None, :],
+              out=A_solve[:, :nI, :nI])
+    diag = A_solve.diagonal(dim1=1, dim2=2)
+    diag[:, :nI] += 1.0 - m_d
+    diag[:, nI:].fill_(1.0)
     return rows, A_solve
 
 
@@ -353,10 +370,17 @@ def finish_post_dvec(tab: UniformTables, band, Ainv_PT, Tinv, dvec, cvd,
 
 
 def patch_solve(tab: UniformTables, A_solve, PT_m):
-    """(X = A^-1 PT, T = PT^T X) by K1 (``"fused"``), by the Schur split
+    """(X = A^-1 PT, T = PT^T X) by K1 (``"fused"``; where ``tab.k1_n``
+    is set, on its padded operand, factored in place), by the Schur split
     with K6 leaves (``"fused_split"``), by the panel LDL^T with K2 on its
     diagonal blocks (``"panel"``) or by a per-patch Cholesky solve
-    (``"lax"``: XLA's Cholesky in the reference, the library's here)."""
+    (``"lax"``: XLA's Cholesky in the reference, the library's here).
+    Counts the chunk's patches (``patch_solve.patches``) and, where K1
+    took the whole block in place, ``patch_solve.whole_block``."""
+    count("patch_solve.patches", PT_m.shape[0])
+    if tab.k1_n:
+        count("patch_solve.whole_block", PT_m.shape[0])
+        return fused_spd_multirhs(A_solve, PT_m, in_place=True)
     if tab.solver_mode == "fused_split":
         return fused_spd_multirhs_split(A_solve, PT_m, nb=tab.panel_nb)
     if tab.solver_mode == "panel":

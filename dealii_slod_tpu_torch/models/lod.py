@@ -8,7 +8,8 @@ card unless the caller asks for the CPU.  The ported routes are 3D / 2D
 scalar diffusion and reaction-diffusion (C = 1) and linear elasticity
 (C = dim), plain LOD or SLOD, with the fused patch solver, its 2x2 Schur
 split, the panel LDL^T or the per-patch Cholesky solve
-(``patch_solver="auto"`` picks by the reference's size rule), the
+(``patch_solver="auto"``: K1 on the whole block on the card in float32
+up to ``K1_WHOLE_MAX_N``, else the reference's size rule), the
 smallk, Jacobi or ``eigh`` spectral stage
 (``eig_solver="auto"``: smallk on the card in float32, ``eigh`` ("lapack")
 elsewhere), the banded or the scatter assembly, the trace kernel or its
@@ -43,6 +44,7 @@ from dealii_slod_tpu_torch.ops.assembly import (FineOperator,
                                                 assemble_load_vector,
                                                 check_coefs,
                                                 make_subcell_matrices)
+from dealii_slod_tpu_torch.ops.patch_solve import k1_operand_n
 from dealii_slod_tpu_torch.ops.solvers import (GraphPlans, cg,
                                                cholesky_solve,
                                                dense_dirichlet_solve)
@@ -94,20 +96,43 @@ def spectral_mode(cfg: SLODConfig, device: torch.device) -> str:
             else "lapack")
 
 
-def patch_solver_mode(cfg: SLODConfig, C: int, sc: ShapeClass) -> str:
-    """The patch solver ``patch_solver`` names: "auto" applies the
-    reference's size rule (``models/basis.py: _fused_solver_mode``) on any
-    device and dtype -- "fused" when the fused kernel's estimate fits
+# The largest padded block K1 takes whole on the card in float32 under
+# patch_solver="auto" (``patch_solver_mode``).
+K1_WHOLE_MAX_N = 2240
+
+
+def patch_solver_mode(cfg: SLODConfig, C: int, sc: ShapeClass,
+                      device=None) -> str:
+    """The patch solver ``patch_solver`` names.  "auto" on a CUDA
+    ``device`` in float32 is "fused" (K1 on the whole block) wherever the
+    block, padded to K1's panel (``ops/patch_solve.py: k1_operand_n``),
+    is at most ``K1_WHOLE_MAX_N``.  The card has no scoped-memory limit,
+    and there K1 on the whole block, factored in place, beat the Schur
+    split on K6 leaves at both padded-2240 blocks the port runs (NVIDIA
+    H100 80GB HBM3, 700 W, float32, 128 patches a chunk, CUDA events,
+    ``chip_smoke.py: patch_route_times``): 3D l=2 elasticity (2187, k 375)
+    24.78 ms against the split's 39.27, 3D l=3 diffusion (2197, k 343)
+    25.01 against 36.39.  No larger block was timed, so the constant
+    stops there.  Float64 keeps the reference's rule, and so the split on
+    K6 leaves: that is the route ``chip_smoke.py``'s float64 K6 gates and
+    the float64 card paths hold to their answers.  K1 whole is faster
+    in float64 too (the same card: 49.56 ms against 60.76 at 2187, 49.39
+    against 56.48 at 2197), so moving float64 is open.
+    Elsewhere (no device, the CPU, float64, or a larger block) "auto"
+    applies the reference's size rule (``models/basis.py:
+    _fused_solver_mode``): "fused" when the fused kernel's estimate fits
     12 MiB (3D l=2 diffusion sits exactly at it), else "fused_split" when
     a half split fits 13 MiB (3D l=2 elasticity), else "lax" (the
-    per-patch Cholesky solve).  The rule only picks the structure the
-    reference's accelerator path runs; the card has no such limits.  A
-    named solver other than "fused", "fused_split" and "panel" is "lax",
-    as in the reference ("panel": ``ops/patch_solve.py:
-    panel_spd_multirhs``)."""
+    per-patch Cholesky solve).  A named solver other than "fused",
+    "fused_split" and "panel" is "lax", as in the reference ("panel":
+    ``ops/patch_solve.py: panel_spd_multirhs``)."""
     mode = cfg.patch_solver
     if mode != "auto":
         return mode if mode in ("fused", "fused_split", "panel") else "lax"
+    if (device is not None and torch.device(device).type == "cuda"
+            and cfg.dtype == "float32"
+            and k1_operand_n(sc.n_interior * C) <= K1_WHOLE_MAX_N):
+        return "fused"
     n = -(-sc.n_interior * C // 128) * 128
     k = -(-sc.n_coarse_dofs_local // 128) * 128
     bs = max(1, cfg.fused_block)
@@ -235,7 +260,8 @@ class LODSolver:
             (self.stencil_offsets == 0).all(axis=1))[0][0])
 
         self.canvas_class = ShapeClass((2 * ell + 1,) * cfg.dim, self.grid)
-        self.solver_mode = patch_solver_mode(cfg, C, self.canvas_class)
+        self.solver_mode = patch_solver_mode(cfg, C, self.canvas_class,
+                                             self.device)
         self.canvas_center_cell = int(ravel(np.full(cfg.dim, ell),
                                             np.full(cfg.dim, 2 * ell + 1)))
         self._tables = None

@@ -111,29 +111,52 @@ def band_placement_matrix(node_dims) -> tuple:
     return P, shift, nN
 
 
-def bands_to_dense_mm(band: torch.Tensor, P, shift: int, nN: int
-                      ) -> torch.Tensor:
+def bands_to_dense_mm(band: torch.Tensor, P, shift: int, nN: int,
+                      n: int | None = None) -> torch.Tensor:
     """Dense (B, nN C, nN C) matrices from bands (B, nN, 3^dim) (C = 1) or
     (B, nN, 3^dim, C, C) by the banded-stride embedding.  Row group i (its
-    C dense rows) is one width-C(nN C + 1) buffer row in which entry
+    C dense rows) is one width-C(W + 1) buffer row in which entry
     ((i, c), (i + delta_o, d)) sits at column c*W + (s_o + shift)*C + d
-    (W = nN C), and the dense matrix is one flat slice of the buffer from
-    shift*C on (for C = 1: row i's width-(nN+1) block, ``band[i] @ P``).
-    P's rows are one-hot with distinct columns, so the values are placed
-    by index (no multiply); wrap-around placements carry zero band values.
-    ``P`` may be a tensor on the band's device (no host copy per call)."""
+    (W the dense row width, nN C), and the dense matrix is one flat slice
+    of the buffer from shift*C on (for C = 1: row i's width-(nN+1) block,
+    ``band[i] @ P``).  P's rows are one-hot with distinct columns, so the
+    values are placed by index (no multiply), each buffer entry at most
+    once; wrap-around placements carry zero band values.  ``P`` may be a
+    tensor on the band's device (no host copy per call).
+
+    With ``n`` (>= nN C): the (B, n, n) operand that K1 factors in place
+    (``ops/patch_solve.py: fused_spd_multirhs``), contiguous, the same
+    values in its leading block, zeros beside it and a unit diagonal on
+    the rows past nN C.  Where n > nN C the embedding runs at W = n, its
+    buffer rows laid over the operand's own storage (a patch's nN rows of
+    C(n + 1) fit its n x n block), so no dense copy is made; the diagonal
+    is a fill, with no host scalar to copy.  At n = nN C the block is
+    copied once into its contiguous operand."""
     Bn = band.shape[0]
     C = 1 if band.dim() == 3 else band.shape[-1]
-    W = nN * C
+    N = nN * C
+    W = n or N
     cols = torch.as_tensor(P, device=band.device).argmax(1)
     if C > 1:
         cc = torch.arange(C, device=band.device)
         cols = (cc[None, :, None] * W + cols[:, None, None] * C
                 + cc[None, None, :]).reshape(-1)      # (o, c, d) flat
-    buf = band.new_zeros((Bn, nN, C * (W + 1)))
+    if W == N:
+        buf = band.new_zeros((Bn, nN, C * (W + 1)))
+        buf[:, :, cols] = band.reshape(Bn, nN, -1)
+        A = buf.reshape(Bn, -1)[:, shift * C:shift * C + N * W].reshape(
+            Bn, N, W)
+        return A if n is None else A.contiguous()
+    # the operand starts at a 64-element boundary of its storage, past the
+    # first buffer row's shift * C leading entries
+    lead = -(-shift * C // 64) * 64
+    flat = band.new_zeros(lead + Bn * n * n)
+    buf = flat.as_strided((Bn, nN, C * (n + 1)), (n * n, C * (n + 1), 1),
+                          lead - shift * C)
     buf[:, :, cols] = band.reshape(Bn, nN, -1)
-    return buf.reshape(Bn, -1)[:, shift * C:shift * C + nN * C * W].reshape(
-        Bn, nN * C, W)
+    out = flat[lead:].view(Bn, n, n)
+    out.diagonal(dim1=1, dim2=2)[:, N:].fill_(1.0)
+    return out
 
 
 # ---------------------------------------------------------------------------

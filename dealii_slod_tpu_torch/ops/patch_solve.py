@@ -26,6 +26,12 @@ GJ_PAD = 128     # K2's size: it takes m <= 128 (the blocked inverse's pivot)
 SOLVE_VMEM_BUDGET = int(9.5e6)
 
 
+def k1_operand_n(n0: int) -> int:
+    """n of K1's and K6's operand for an (n0, n0) block: n0 padded to a
+    multiple of the panel width."""
+    return -(-n0 // NB) * NB
+
+
 def _pad_spd(A: torch.Tensor, n: int) -> torch.Tensor:
     """(B, n0, n0) -> (B, n, n), unit diagonal on the padded rows (the
     padded coordinates stay decoupled, so the leading block is solved or
@@ -56,22 +62,27 @@ def fused_spd_multirhs_plain(A: torch.Tensor, B: torch.Tensor):
     return X, B.mT @ X
 
 
-def _ldl_operands(name: str, A: torch.Tensor, B: torch.Tensor):
+def _ldl_operands(name: str, A: torch.Tensor, B: torch.Tensor,
+                  in_place: bool = False):
     """K1's and K6's operands on CUDA: n and k padded to multiples of 64
     (unit diagonal on padded rows, zero right-hand sides), the scratch
-    copy of A that the kernel factors in place, X holding B (B -> z -> X
-    in place) and the per-patch workspace, whose size is the C++
-    launcher's rule (``slod_{name}_ws``: D_j^-1, one 128-row block of
+    copy of A that the kernel factors in place (``in_place``: A itself,
+    which must already be that padded, contiguous operand), X holding B
+    (B -> z -> X in place) and the per-patch workspace, whose size is the
+    C++ launcher's rule (``slod_{name}_ws``: D_j^-1, one 128-row block of
     right-hand sides and, with the triple product, w)."""
-    P, n0, _ = A.shape
-    k0 = B.shape[-1]
-    if B.shape[:2] != (P, n0) or A.shape[2] != n0:
-        raise ValueError(f"{name}: A {tuple(A.shape)} and B "
-                         f"{tuple(B.shape)} do not match")
-    # A and B are copied into the padded, contiguous operands below
-    kernels.check_cuda(name, A, B, contiguous=False)
-    n = -(-n0 // NB) * NB
+    P, n0, k0 = B.shape
+    n = k1_operand_n(n0)
     k = -(-k0 // NB) * NB
+    if A.shape != ((P, n, n) if in_place else (P, n0, n0)):
+        raise ValueError(f"{name}: A {tuple(A.shape)} and B "
+                         f"{tuple(B.shape)} do not match"
+                         + (f" (in place: A padded to n = {n})" if in_place
+                            else ""))
+    if in_place and not A.is_contiguous():
+        raise ValueError(f"{name}: the in-place operand must be contiguous")
+    # B (and A unless in place) are copied into padded, contiguous operands
+    kernels.check_cuda(name, A, B, contiguous=False)
     X = B.new_empty((P, n, k))
     X[:, :n0, :k0] = B
     if n > n0:
@@ -79,7 +90,7 @@ def _ldl_operands(name: str, A: torch.Tensor, B: torch.Tensor):
     if k > k0:
         X[:, :n0, k0:] = 0.0
     work = kernels.workspace(name, f"slod_{name}", A.dtype, A.device, P, n, k)
-    return _pad_spd(A, n), X, work
+    return (A if in_place else _pad_spd(A, n)), X, work
 
 
 def fused_ldl_blocked_plain(A: torch.Tensor, B: torch.Tensor,
@@ -137,17 +148,24 @@ def fused_ldl_blocked_plain(A: torch.Tensor, B: torch.Tensor,
     return (X, T) if with_T else X
 
 
-def fused_spd_multirhs(A: torch.Tensor, B: torch.Tensor):
+def fused_spd_multirhs(A: torch.Tensor, B: torch.Tensor,
+                       in_place: bool = False):
     """Kernel K1 (replaces ``dealii_slod_tpu/ops/patch_solve.py:
     fused_spd_multirhs``, ``algo="ldl"``, nb = 64).
 
     A (P, n, n) SPD, B (P, n, k) -> (X = A^-1 B (P, n, k),
     T = B^T A^-1 B (P, k, k)).  On CUDA, n and k are padded to multiples
     of 64 and one CTA factors each patch in place on a scratch copy of A
-    (``_ldl_operands``)."""
+    (``_ldl_operands``).  ``in_place``: A is already that padded operand
+    (P, k1_operand_n(n), ...), contiguous, zero beside the leading block
+    and a unit diagonal past it (``ops/assembly.py: bands_to_dense_mm``
+    with ``n``), and K1 factors it where it lies, with no copy: its
+    contents are lost.  On the CPU the plain version solves A's leading
+    block."""
     if not A.is_cuda:
-        return fused_spd_multirhs_plain(A, B)
-    A_scr, X, work = _ldl_operands("fused_spd_multirhs", A, B)
+        n0 = B.shape[1]
+        return fused_spd_multirhs_plain(A[:, :n0, :n0], B)
+    A_scr, X, work = _ldl_operands("fused_spd_multirhs", A, B, in_place)
     P, n, k = X.shape
     T = torch.empty((P, k, k), dtype=A.dtype, device=A.device)
     kernels.launch("K1 fused_spd_multirhs", "slod_fused_spd_multirhs",

@@ -670,10 +670,14 @@ def test_default_run_gpu_matches_cpu(cuda):
 
 
 def test_trace_counters_match_the_profilers_trace(cuda, tmp_path):
-    """A traced step on the card (stencil-matvec CG, K1 on padded patch
+    """Traced steps on the card (stencil-matvec CG, K1 on padded patch
     blocks): ``h2d_bytes`` is the trace's host-to-device copy bytes, and
-    ``host_syncs`` its stream synchronisations inside the port's ranges
-    (the CG's stop tests, the pad's pageable upload)."""
+    ``host_syncs`` its stream synchronisations inside the port's ranges.
+    The first step after the basis and the coarse operator were built
+    uploads the stencil tables (two pageable copies that wait) besides the
+    CG's stop tests; the second uploads nothing (the tables stay on the
+    card, and K1's padded operand is assembled there, so no pad uploads a
+    scalar) and waits only on the stop tests."""
     import json
 
     from torch.profiler import ProfilerActivity, profile
@@ -688,33 +692,46 @@ def test_trace_counters_match_the_profilers_trace(cuda, tmp_path):
                      verbose=False)
     s.assemble_fine_rhs()
     step = s.build_step()
-    step(s.coef_q, s.fem_rhs)
+    # the basis' and the stencil build's tables, and every kernel's build,
+    # before the first traced step; the coarse solve has not run yet
+    s.compute_basis()
+    s.assemble_coarse_operator()
     torch.cuda.synchronize()
-    timers.clear()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(s.coef_q, s.fem_rhs)
-        torch.cuda.synchronize()
-    path = tmp_path / "trace.json"
-    prof.export_chrome_trace(str(path))
-    ev = [e for e in json.loads(path.read_text())["traceEvents"]
-          if e.get("ph") == "X"]
-    names = {r.name for r in timers.records()}
-    ranges = [(e["ts"], e["ts"] + e["dur"], e.get("tid")) for e in ev
-              if e.get("cat") == "user_annotation" and e["name"] in names]
-    syncs = sum(1 for e in ev if e["name"] == "cudaStreamSynchronize"
-                and any(a <= e["ts"] < b and t == e.get("tid")
-                        for a, b, t in ranges))
-    h2d = sum(int(e["args"]["bytes"]) for e in ev
-              if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"])
-    c = timers.counters()
-    timers.clear()
-    n = int(s.coarse_cg.n_iter)
-    assert sum(c["h2d_bytes"].values()) == h2d > 0
+
+    def traced(k):
+        timers.clear()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(s.coef_q, s.fem_rhs)
+            torch.cuda.synchronize()
+        path = tmp_path / f"trace{k}.json"
+        prof.export_chrome_trace(str(path))
+        ev = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+        names = {r.name for r in timers.records()}
+        ranges = [(e["ts"], e["ts"] + e["dur"], e.get("tid")) for e in ev
+                  if e.get("cat") == "user_annotation"
+                  and e["name"] in names]
+        syncs = sum(1 for e in ev if e["name"] == "cudaStreamSynchronize"
+                    and any(a <= e["ts"] < b and t == e.get("tid")
+                            for a, b, t in ranges))
+        h2d = sum(int(e["args"]["bytes"]) for e in ev
+                  if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"])
+        c = timers.counters()
+        timers.clear()
+        return c, syncs, h2d, int(s.coarse_cg.n_iter)
+
+    tables = s.stencil_nbr_np.nbytes + s.stencil_valid_np.nbytes
+    c, syncs, h2d, n = traced(1)
+    assert sum(c.get("h2d_bytes", {}).values()) == h2d == tables > 0
     assert sum(c["host_syncs"].values()) == syncs
-    # the stop tests and one pad per chunk: the stencil tables stay on
-    # the card from the first step's upload
+    # the stop tests and the two tables' uploads
     assert syncs == -(-n // 8) + 1 + 2
+    c, syncs, h2d, n = traced(2)
+    assert sum(c.get("h2d_bytes", {}).values()) == h2d == 0
+    assert sum(c["host_syncs"].values()) == syncs
+    # the stop tests alone
+    assert syncs == -(-n // 8) + 1
 
 
 def test_coarse_cg_graph_replays_match_eager(cuda):
@@ -784,3 +801,94 @@ def test_coarse_cg_graph_replays_match_eager(cuda):
     assert graph_it == 0 and enq > 0
     assert rel(res.x, eager(rhs[4]).x) <= 1e-6
     assert s._cg_plans._plan is None
+
+
+def _card_chunk(elastic, p0=16, B=16):
+    """A float32 card solver (3D refine-2, l = 2: the 2187 / 729 blocks of
+    the benchmark's configurations, windows clipped by the 4^3 grid), its
+    tables and the prep of patches p0 .. p0+B-1."""
+    from dealii_slod_tpu_torch.models import basis
+    cfg = SLODConfig(dim=3, n_global_refinements=2, n_subdivisions=2,
+                     oversampling=2, lod_stabilization=True,
+                     constant_coefficients=False, coef_refinement=3,
+                     coef_seed=7, dtype="float32", patch_chunk=B,
+                     rhs="1; 1; 1" if elastic else "1")
+    s = pt.LODSolver(cfg, (pt.ElasticityProblem if elastic
+                           else pt.DiffusionProblem)(cfg), device="cuda",
+                     verbose=False)
+    tab = s._uniform_tables()
+    _, nlo, nhi, sides = s._uniform_inputs()
+    sel = slice(p0, p0 + B)
+    cw = {k: basis.coef_windows(cfg, s.grid, s.coef_q[k])[sel]
+          for k in tab.coef_names}
+    lo, hi, sd = (torch.as_tensor(a[sel], device="cuda")
+                  for a in (nlo, nhi, sides))
+    return s, tab, cw, lo, hi, sd
+
+
+def test_elasticity_chunk_on_the_whole_block(cuda):
+    """The card's float32 route for 3D l = 2 elasticity: K1 on the whole
+    (2187 -> 2240) block, factored in place on prep's padded operand, one
+    launch; X and T against the float64 plain solve within the float32
+    gate (4x the float32 plain version's error + 1e-6), and within it of
+    the Schur split on K6 leaves."""
+    from dealii_slod_tpu_torch.models import basis
+    s, tab, cw, lo, hi, _ = _card_chunk(True)
+    assert s.solver_mode == "fused" and tab.k1_n == 2240 and tab.nI == 2187
+    _, Ap, PT_m, _ = basis.prep(tab, cw, lo, hi)
+    assert Ap.shape == (16, 2240, 2240) and Ap.is_contiguous()
+    A = Ap[:, :tab.nI, :tab.nI].clone()
+    Xr, Tr = patch_solve.fused_spd_multirhs_plain(A.double(), PT_m.double())
+    Xp, Tp = patch_solve.fused_spd_multirhs_plain(A, PT_m)
+    kernels.reset_launch_counts()
+    X, T = basis.patch_solve(tab, Ap, PT_m)
+    assert kernels.launches["K1 fused_spd_multirhs"] == 1
+    assert kernels.launches["K6 spd_multirhs_solve"] == 0
+    Xs, Ts = patch_solve.fused_spd_multirhs_split(A, PT_m)
+    for out, plain, ref in ((X, Xp, Xr), (T, Tp, Tr), (Xs, Xp, Xr),
+                            (Ts, Tp, Tr)):
+        assert rel(out.double(), ref) <= 4 * rel(plain.double(), ref) + 1e-6
+
+
+def test_diffusion_k1_in_place_is_bitwise_the_copied_route(cuda):
+    """Diffusion's K1 on prep's padded operand in place gives X and T
+    bit for bit those of K1 on the unpadded block through its padded
+    copy: the kernel sees the same values (the operands differ only in
+    the sign of some zeros, where masked placements land)."""
+    import dataclasses
+
+    from dealii_slod_tpu_torch.models import basis
+    s, tab, cw, lo, hi, _ = _card_chunk(False)
+    assert s.solver_mode == "fused" and tab.k1_n == 768
+    _, Ap, PT_m, _ = basis.prep(tab, cw, lo, hi)
+    _, A, _, _ = basis.prep(dataclasses.replace(tab, k1_n=0), cw, lo, hi)
+    assert A.shape == (16, 729, 729)
+    X0, T0 = patch_solve.fused_spd_multirhs(A, PT_m)
+    X1, T1 = patch_solve.fused_spd_multirhs(Ap, PT_m, in_place=True)
+    for a, b in ((X1, X0), (T1, T0)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_diffusion_chunk_makes_no_host_sync(cuda):
+    """A traced diffusion chunk on the card (K1 on the padded operand,
+    T^-1 and (G + delta I)^-1 at 125 <= 128: no pad) counts no host sync
+    and no upload; the chunk counts its patches, all on the whole
+    block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dealii_slod_tpu_torch.models import basis
+    from dealii_slod_tpu_torch.utils import timers
+    s, tab, cw, lo, hi, sd = _card_chunk(False)
+    out = tuple(torch.empty((16, tab.n_nodes, 1, 1), device=cuda)
+                for _ in range(2))
+    basis.uniform_chunk(tab, cw, lo, hi, sd, out)
+    torch.cuda.synchronize()
+    timers.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        basis.uniform_chunk(tab, cw, lo, hi, sd, out)
+        torch.cuda.synchronize()
+    c = timers.counters()
+    timers.clear()
+    assert "host_syncs" not in c and "h2d_bytes" not in c
+    assert c["patch_solve.patches"] == c["patch_solve.whole_block"] == {
+        "patch_solve": 16}
