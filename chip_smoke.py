@@ -2357,6 +2357,7 @@ def phase_routes(card):
 
     import torch
     from dealii_slod_tpu_torch.examples import convergence_study, multi_rhs
+    from dealii_slod_tpu_torch.models.coarse import CoarseSystem
     from dealii_slod_tpu_torch.ops import patch_solve
     from dealii_slod_tpu_torch.utils import checkpoint, kernels
 
@@ -2445,10 +2446,11 @@ def phase_routes(card):
         "routes-direct-f64", sd,
         lambda: sd.build_step()(sd.coef_q, sd.fem_rhs))
     check(sd.coarse_cg is None, "routes: the direct route ran CG")
-    rhs = sd._coarse_rhs(sd.Phi, sd.fem_rhs)
+    rhs = CoarseSystem(sd, A_st).rhs(sd.Phi, sd.fem_rhs)
     walls = {}
-    for name, fn in (("direct", lambda: sd._coarse_direct_fn(A_st)(rhs)),
-                     ("cg", lambda: sf64._coarse_cg(A_st, rhs).x)):
+    for name, fn in (("direct",
+                      lambda: CoarseSystem(sd, A_st).direct_solve(rhs)),
+                     ("cg", lambda: CoarseSystem(sf64, A_st).cg(rhs).x)):
         for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2457,7 +2459,7 @@ def phase_routes(card):
             walls[name] = time.perf_counter() - t0
         walls[name + "_x"] = x
     from dealii_slod_tpu_torch.ops.solvers import cg
-    tight = cg(sf64._coarse_matvec_fn(A_st), rhs, max_steps=4000,
+    tight = cg(CoarseSystem(sf64, A_st).matvec, rhs, max_steps=4000,
                tolerance=1e-12, reduce=1e-12,
                precond=lambda r: r / torch.einsum(
                    "pdd->pd", A_st[:, sf64.center_offset_idx]))
@@ -3065,6 +3067,7 @@ def exact_field(s):
     system solved exactly: the step's A_st and basis in float64, a dense
     Cholesky solve (no CG stop), on the card; returned on the host."""
     import torch
+    from dealii_slod_tpu_torch.models.coarse import CoarseSystem
     from dealii_slod_tpu_torch.ops.solvers import cholesky_solve
     Phi = s.Phi.double()
     A = s.coarse_dense_matrix(s.A_stencil.double())
@@ -3076,7 +3079,7 @@ def exact_field(s):
               f"{float(lam[-1] / lam[0]):.3e}")
     L = torch.linalg.cholesky(A)
     del A
-    rhs = s._coarse_rhs(Phi, s.fem_rhs.double())
+    rhs = CoarseSystem(s, s.A_stencil).rhs(Phi, s.fem_rhs.double())
     x = cholesky_solve(L, rhs.reshape(-1, 1)).reshape(rhs.shape)
     del L
     out = torch.zeros((s.grid.n_nodes, s.C), dtype=torch.float64,
@@ -3231,6 +3234,7 @@ def first_call_breakdown(card, cfg):
     import torch
     from dealii_slod_tpu_torch import DiffusionProblem, LODSolver
     from dealii_slod_tpu_torch.models import basis, lod, stencil
+    from dealii_slod_tpu_torch.models.coarse import CoarseSystem
     from dealii_slod_tpu_torch.utils import kernels
     t_all = time.perf_counter()
     times, saved = collections.defaultdict(float), []
@@ -3259,8 +3263,7 @@ def first_call_breakdown(card, cfg):
         (basis, "uniform_chunk", "step: chunk loop"),
         (LODSolver, "assemble_coarse_operator", "step: coarse build"),
         (stencil, "stencil_tables", "step: coarse build, of it the tables"),
-        (LODSolver, "_coarse_rhs", "step: coarse rhs and solve"),
-        (LODSolver, "_solve_coarse_system", "step: coarse rhs and solve")]
+        (CoarseSystem, "solve", "step: coarse rhs and solve")]
     try:
         for obj, attr, label in targets:
             fn = getattr(obj, attr)

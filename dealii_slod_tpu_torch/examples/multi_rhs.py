@@ -13,8 +13,8 @@ process can answer load cases without ever re-running the basis stage.
     python -m dealii_slod_tpu_torch.examples.multi_rhs --device cpu
 
 Environment: MR_DIM (2), MR_REFINE (4), MR_RHS (16 load cases), MR_DTYPE
-(float32 on the card, float64 on the CPU), MR_COARSE ("direct" when the
-system fits ``coarse_dense_cap``, else "cg").
+(float32 on the card, float64 on the CPU), MR_COARSE ("direct", which
+runs as "cg" where the system exceeds ``coarse_dense_cap``; or "cg").
 """
 
 from __future__ import annotations
@@ -28,24 +28,9 @@ import torch
 
 
 def serve_fn(solver, mode):
-    """fem load vector (n_nodes, C) -> coarse solution (P, C): C^T f over
-    the rhs's canvas windows (``solver._coarse_rhs``), then the direct
-    solve (its Cholesky factor made here, once) or the coarse CG; each
-    call is a ``coarse_solve`` span (``utils/timers``)."""
-    from dealii_slod_tpu_torch.models.lod import full_f32_matmuls
-    from dealii_slod_tpu_torch.utils.timers import span
-
-    if mode == "direct":
-        solve = solver._coarse_direct_fn(solver.A_stencil)
-    else:
-        def solve(rhs_c):
-            return solver._coarse_cg(solver.A_stencil, rhs_c).x
-
-    def serve(fem_rhs):
-        with full_f32_matmuls(), span("coarse_solve"):
-            return solve(solver._coarse_rhs(solver.Phi, fem_rhs))
-
-    return serve
+    """fem load vector (n_nodes, C) -> coarse solution (P, C): the
+    solver's load-case entry, ``LODSolver.load_server(mode)``."""
+    return solver.load_server(mode)
 
 
 def main(argv=None):
@@ -83,15 +68,7 @@ def main(argv=None):
     t_basis = time.perf_counter() - t0
     P = solver.topo.n_patches
 
-    fits_cap = P * solver.C <= cfg.coarse_dense_cap
-    mode = os.environ.get("MR_COARSE", "direct" if fits_cap else "cg")
-    if mode == "direct" and not fits_cap:
-        # the library's own direct path refuses above the cap (an uncapped
-        # dense factor is a multi-GB allocation); mirror that here
-        print(f"MR_COARSE=direct: {P * solver.C} coarse dofs exceed "
-              f"coarse_dense_cap={cfg.coarse_dense_cap}; using cg")
-        mode = "cg"
-    serve = serve_fn(solver, mode)
+    serve = serve_fn(solver, os.environ.get("MR_COARSE", "direct"))
 
     rng = np.random.default_rng(0)
     n_nodes = solver.grid.n_nodes
@@ -108,13 +85,13 @@ def main(argv=None):
         walls.append(time.perf_counter() - t0)
         solutions.append(u)
 
-    print(f"config: dim={dim} refine={refine} patches={P} coarse={mode} "
-          f"device={dev.type} dtype={dtype}")
+    print(f"config: dim={dim} refine={refine} patches={P} "
+          f"coarse={serve.mode} device={dev.type} dtype={dtype}")
     print(f"basis + operator (once): {t_basis:.2f} s")
     print(f"serve latency per rhs: median {np.median(walls) * 1e3:.1f} ms "
           f"(min {min(walls) * 1e3:.1f}) over {n_rhs} load cases "
           f"-> {t_basis / np.median(walls):.0f}x cheaper than rebuilding")
-    return dict(solutions=solutions, mode=mode, basis_s=t_basis,
+    return dict(solutions=solutions, mode=serve.mode, basis_s=t_basis,
                 serve_s=walls)
 
 

@@ -38,7 +38,7 @@ from dealii_slod_tpu_torch.grid import (GridSpec, PatchTopology,
                                         ShapeClass, cartesian_coords,
                                         clipped_window_index,
                                         global_connectivity, ravel)
-from dealii_slod_tpu_torch.models import basis, classes, stencil
+from dealii_slod_tpu_torch.models import basis, classes, coarse, stencil
 from dealii_slod_tpu_torch.ops import element
 from dealii_slod_tpu_torch.ops.assembly import (FineOperator,
                                                 assemble_load_vector,
@@ -46,10 +46,8 @@ from dealii_slod_tpu_torch.ops.assembly import (FineOperator,
                                                 make_subcell_matrices)
 from dealii_slod_tpu_torch.ops.patch_solve import k1_operand_n
 from dealii_slod_tpu_torch.ops.solvers import (GraphPlans, cg,
-                                               cholesky_solve,
                                                dense_dirichlet_solve)
-from dealii_slod_tpu_torch.parallel.mesh import (all_gather_rows,
-                                                 check_mesh, exchange_rows,
+from dealii_slod_tpu_torch.parallel.mesh import (check_mesh, exchange_rows,
                                                  replicate)
 from dealii_slod_tpu_torch.utils import errors
 from dealii_slod_tpu_torch.utils.errors import ConvergenceTable, host_array
@@ -272,7 +270,8 @@ class LODSolver:
         self._slab_tables = {}
         self._placement = None
         self._gather = None
-        self._cg_plans = GraphPlans()
+        self._coarse = None
+        self._graph_plans = GraphPlans()
 
     def parse(self, spec):
         return ParsedFunction(spec, self.C, self.cfg.dim)
@@ -535,125 +534,45 @@ class LODSolver:
                 self.stencil_nbr_np, self.stencil_valid_np, self.device)
         return stencil.coarse_dense_matrix(A_st, self._placement)
 
-    def _coarse_matvec_fn(self, A_st, rows=None, group=None):
-        """Dense matvec below ``coarse_dense_cap`` (the matrix is built
-        once, outside the CG loop), stencil matvec beyond.  Sharded
-        (``rows`` = the rank's patches, ``group``): A_st holds those rows,
-        the matvec maps the rank's rows of u to the rank's rows of A u and
-        gathers the whole u from every rank first (P C values a matvec)."""
-        dense = self.topo.n_patches * self.C <= self.cfg.coarse_dense_cap
-        sl = slice(None) if rows is None else slice(*rows)
-        gather = ((lambda u: u) if group is None
-                  else (lambda u: all_gather_rows(u, group)))
-        if dense:
-            Ad = self.coarse_dense_matrix(A_st, rows)
-            return lambda u: (Ad @ gather(u).reshape(-1)).reshape(u.shape)
-        nbr, valid = self._stencil_gather()
-        nbr, valid = nbr[sl], valid[sl]
-        return lambda u: stencil.coarse_matvec_with(A_st, gather(u), nbr,
-                                                    valid)
-
-    def _stencil_gather(self):
-        """The stencil matvec's neighbour table (int64) and validity mask
-        (bool) on the device, uploaded at their first use and kept: a
-        graph-captured matvec reads them at fixed addresses."""
-        if self._gather is None:
-            self._gather = (self._t(self.stencil_nbr_np, torch.int64),
-                            self._t(self.stencil_valid_np, torch.bool))
-        return self._gather
-
-    def _cg_plan(self, A_st, device, rows=None, group=None):
-        """The coarse CG's graph plan (``ops/solvers.GraphPlans``: None at
-        an operator's first sight, a plan to capture at its second, the
-        same plan to replay after), on the card's single-rank stencil
-        route only; None everywhere else.  The dense route builds a new
-        matrix every call, and the sharded route's ``all_reduce`` stays
-        eager.  A graph holds the stopping rule and the matmul precision
-        it was captured with, so those are part of the operator's key."""
-        stencil_route = (self.topo.n_patches * self.C
-                         > self.cfg.coarse_dense_cap)
-        if torch.device(device).type != "cuda" or group is not None \
-                or not stencil_route:
-            return None
-        rc = self.cfg.coarse_solver
-        return self._cg_plans.plan(
-            A_st, rows, (rc.max_steps, rc.tolerance, rc.reduce),
-            torch.backends.cuda.matmul.allow_tf32)
-
-    @spanned("cg")
-    def _coarse_cg(self, A_st, rhs_c, rows=None, group=None):
-        plan = self._cg_plan(A_st, rhs_c.device, rows, group)
-        # block-diagonal Jacobi: the C x C centre block's diagonal
-        diag = torch.einsum("pdd->pd", A_st[:, self.center_offset_idx])
-        rc = self.cfg.coarse_solver
-        return cg(self._coarse_matvec_fn(A_st, rows, group), rhs_c,
-                  max_steps=rc.max_steps, tolerance=rc.tolerance,
-                  reduce=rc.reduce, precond=lambda r: r / diag, group=group,
-                  graph=plan)
-
-    def _use_direct_coarse(self) -> bool:
-        """``coarse_solve="direct"`` applies up to ``coarse_dense_cap``
-        coarse dofs; CG, the reference's own solver, beyond."""
-        return (self.cfg.coarse_solve == "direct"
-                and self.topo.n_patches * self.C <= self.cfg.coarse_dense_cap)
+    def _coarse_system(self):
+        """``A_stencil``'s coarse system, kept per operator (one factor)."""
+        c, A = self._coarse, self.A_stencil
+        if c is None or c.A_st is not A or c.version != A._version:
+            c = self._coarse = coarse.CoarseSystem(self, A)
+        return c
 
     @_full_f32
-    def _coarse_direct_fn(self, A_st):
-        """rhs (P, C) -> A_LOD^-1 rhs by one dense Cholesky factor of the
-        coarse matrix, made here once, and two triangular solves a call."""
-        L = torch.linalg.cholesky(self.coarse_dense_matrix(A_st))
-        if L.is_cuda:
-            count("host_syncs", 1)  # the card's factor checks its result
-
-        @spanned("direct")
-        def solve(rhs):
-            return cholesky_solve(L, rhs.reshape(-1, 1)).reshape(rhs.shape)
-
-        return solve
-
-    def _solve_coarse_system(self, A_st, rhs_c, rows=None, group=None):
-        """The coarse solution and the CG result (None on the direct
-        route).  Sharded (``rows`` = the rank's patches, ``group``): the
-        rank's rows; the direct route gathers A_st and the rhs from every
-        rank and factors the whole matrix on each."""
-        if self._use_direct_coarse():
-            if group is not None:
-                A_st = all_gather_rows(A_st, group)
-                rhs_c = all_gather_rows(rhs_c, group)
-            x = self._coarse_direct_fn(A_st)(rhs_c)
-            return x if rows is None else x[slice(*rows)], None
-        res = self._coarse_cg(A_st, rhs_c, rows, group)
-        return res.x, res
-
-    @spanned("coarse_rhs")
-    def _coarse_rhs(self, Phi, fem_rhs, rows=None):
-        """C^T f: the rhs's canvas windows (zero outside the domain), or
-        on the classes route the clipped gather ``fem_rhs[canvas_gidx]``
-        as the reference's; the canvases vanish where the two differ.
-        ``rows`` = (a, b): the rows of the patches a .. b-1, whose canvases
-        ``Phi`` holds."""
-        if self.cfg.kernel_mode == "uniform":
-            f_at = basis.rhs_windows(self.cfg, self.grid, fem_rhs, rows)
-        else:
-            sl = slice(None) if rows is None else slice(*rows)
-            f_at = fem_rhs[self.canvas_gidx[sl]]
-        return torch.einsum("pncd,pnc->pd", Phi, f_at)
-
-    @_full_f32
-    @spanned("coarse_solve")
     def solve_coarse(self):
         """Coarse LOD solve (reference LOD.cc:976-1002): rhs = C^T f, then
         CG with Jacobi on the coarse operator, or the direct solve
         (``coarse_solve="direct"`` below the cap; ``coarse_cg`` None)."""
-        rhs_c = self._coarse_rhs(self.Phi, self.fem_rhs)
-        self.coarse_rhs = rhs_c
+        x, self.coarse_rhs, self.coarse_cg = self._coarse_system().solve(
+            self.Phi, self.fem_rhs)
         if self.verbose:
             self.log(f"     rhs l2 norm = "
-                     f"{float(torch.linalg.norm(rhs_c)):.6g}")
-        x, self.coarse_cg = self._solve_coarse_system(self.A_stencil, rhs_c)
+                     f"{float(torch.linalg.norm(self.coarse_rhs)):.6g}")
         self.coarse_solution = x
         self.log(f"   size of u {x.numel()}")
         return x
+
+    @_full_f32
+    def load_server(self, mode=None):
+        """The load-case entry on the current basis and coarse operator:
+        ``serve(fem_rhs (n_nodes, C)) -> coarse solution (P, C)``; ``mode``
+        "direct" (up to ``coarse_dense_cap``, else CG), "cg" or None
+        (``cfg.coarse_solve``), ``serve.mode`` the one that runs.  Route,
+        tables and factor are made here; a call is one ``coarse_solve``."""
+        system = self._coarse_system()
+        direct = coarse.route(self.cfg, system.n_dofs, mode)[1]
+        _ = system.factor if direct else system.matvec
+        solve = system.solve
+
+        def serve(fem_rhs):
+            with full_f32_matmuls():
+                return solve(self.Phi, fem_rhs, direct)[0]
+
+        serve.mode = "direct" if direct else "cg"
+        return serve
 
     @_full_f32
     @spanned("prolong")
@@ -675,78 +594,18 @@ class LODSolver:
     # Fine FEM comparison solve (reference LOD.cc:1004-1094)
     # ------------------------------------------------------------------
 
-    def _two_level_precond(self, diag):
-        """Additive two-level preconditioner for the fine solve,
-        M^-1 r = r / diag + C A_LOD^-1 C^T r, with the LOD space as the
-        coarse correction: the coarse matrix densified on the device from
-        the stencil and factored once by Cholesky."""
-        P, C = self.topo.n_patches, self.C
-        L = torch.linalg.cholesky(self.coarse_dense_matrix(self.A_stencil))
-
-        def coarse_solve(rc):
-            return cholesky_solve(L, rc.reshape(-1, 1))[:, 0].reshape(P, C)
-
-        return self._two_level_from(coarse_solve, diag)
-
-    def _two_level_precond_stencil(self, diag):
-        """The cap-free variant of ``_two_level_precond``: the coarse
-        correction is a degree-16 Chebyshev polynomial of the stencil
-        operator on [lmax / 30, lmax], lmax by Gershgorin row sums (linear
-        and SPD, a valid PCG preconditioner)."""
-        A_st = self.A_stencil
-        lmax = float(A_st.abs().sum(dim=(1, 3)).max())
-        lmin = lmax / 30.0
-        theta, delta = 0.5 * (lmax + lmin), 0.5 * (lmax - lmin)
-        nbr, valid = self._stencil_gather()
-
-        degree = 16
-
-        def coarse_solve(rc):
-            # Chebyshev iteration for A y = rc on [lmin, lmax]
-            y = rc / theta
-            d = y
-            sigma = theta / delta
-            rho = 1.0 / sigma
-            for _ in range(degree - 1):
-                rho_new = 1.0 / (2.0 * sigma - rho)
-                r = rc - stencil.coarse_matvec_with(A_st, y, nbr, valid)
-                d = rho_new * (2.0 / delta * r + rho * d)
-                y = y + d
-                rho = rho_new
-            return y
-
-        return self._two_level_from(coarse_solve, diag)
-
-    def _two_level_from(self, coarse_solve, diag):
-        gidx = self.canvas_gidx.reshape(-1)
-
-        def precond(r):
-            rc = torch.einsum("pncd,pnc->pd", self.Phi,
-                              r[self.canvas_gidx])                # C^T r
-            vals = torch.einsum("pncd,pd->pnc", self.Phi, coarse_solve(rc))
-            coarse = torch.zeros_like(r)
-            coarse.index_add_(0, gidx, vals.reshape(-1, self.C))  # C y
-            coarse = torch.where(self.fine_bnd[:, None], 0.0, coarse)
-            return r / diag + coarse
-
-        return precond
-
     @_full_f32
     def solve_fine_fem(self):
         """Fine-scale FEM solve: CG with Jacobi, or with the LOD-space
-        two-level preconditioner (``fine_preconditioner="two_level"``:
-        direct coarse factor up to ``two_level_dense_cap`` coarse dofs,
-        the stencil Chebyshev correction beyond)."""
+        two-level preconditioner (``fine_preconditioner="two_level"``,
+        ``coarse.CoarseSystem.two_level_precond``)."""
         cfg = self.cfg
         op = FineOperator(self.et, self.conn, self.coef_q,
                           dirichlet_mask=self.fine_bnd)
         d = op.diagonal()
         if (cfg.fine_preconditioner == "two_level"
                 and hasattr(self, "A_stencil")):
-            if self.topo.n_patches * self.C <= cfg.two_level_dense_cap:
-                precond = self._two_level_precond(d)
-            else:
-                precond = self._two_level_precond_stencil(d)
+            precond = self._coarse_system().two_level_precond(d)
         else:
             precond = lambda r: r / d                            # noqa: E731
         rc = cfg.fine_solver
@@ -1035,9 +894,7 @@ class LODSolver:
     def _step(self, coefs, fem_rhs):
         Phi, _ = self.compute_basis(coefs)
         A_st = self.assemble_coarse_operator()
-        with span("coarse_solve"):
-            x, res = self._solve_coarse_system(
-                A_st, self._coarse_rhs(Phi, fem_rhs))
+        x, _, res = coarse.CoarseSystem(self, A_st).solve(Phi, fem_rhs)
         self.coarse_solution, self.coarse_cg = x, res
         return x, A_st
 
@@ -1048,10 +905,9 @@ class LODSolver:
         patches; the canvases of the patches within 2 l planes of them
         from the ranks that own them (point to point; ``halo_bytes`` says
         how much came in); its rows of A_st on that slab
-        (``stencil_slab``, the byte rule read on the global P); its rows
-        of the coarse rhs; and its rows of the coarse CG (dots summed over
-        the ranks, u gathered a matvec) or, with the direct coarse solve,
-        A_st and the rhs gathered and factored on every rank."""
+        (``stencil_slab``, the byte rule read on the global P); its share
+        of the coarse solve (``coarse.CoarseSystem``; the CG's dots summed
+        over the ranks)."""
         group = mesh.get_group(axis)
         n, r = mesh.size(), mesh.get_local_rank(axis)
         P = self.topo.n_patches
@@ -1066,9 +922,8 @@ class LODSolver:
         A_st = self._stencil_build(Phi_s, APhi_s, slabs[r])
         del Phi_s, APhi_s
         self.A_stencil = A_st
-        with span("coarse_solve"):
-            x, res = self._solve_coarse_system(
-                A_st, self._coarse_rhs(Phi, fem_rhs, rows), rows, group)
+        x, _, res = coarse.CoarseSystem(self, A_st, rows, group).solve(
+            Phi, fem_rhs)
         self.coarse_solution, self.coarse_cg = x, res
         return tuple(DTensor.from_local(v, mesh, [Shard(0)], run_check=False)
                      for v in (x, A_st))

@@ -1,11 +1,12 @@
 """The coarse CG's CUDA-graph plan (``ops/solvers.py: CGGraph``,
-``GraphPlans``; ``LODSolver._cg_plan``) on the CPU: the operator-reuse rule
-that decides when a plan engages, the solver's rule (the card's single-rank
-stencil route only), a CPU solve that never captures and equals the eager
-CG, the stencil tables uploaded once, and the plan's static buffers driven
-through stand-in graphs that run the captured code on each replay (the
-card's own capture: ``tests/test_torch_cuda.py``).  Tiny 2D configurations;
-~5 s on one worker."""
+``GraphPlans``; ``models/coarse.py: CoarseSystem.plan``) on the CPU: the
+operator-reuse rule that decides when a plan engages, the coarse system's
+rule (the card's single-rank stencil route only), a CPU solve that never
+captures and equals the eager CG, the stencil tables uploaded once, and
+the plan's static buffers driven through stand-in graphs that run the
+captured code on each replay (the card's own capture:
+``tests/test_torch_cuda.py``).  Tiny 2D configurations; ~5 s on one
+worker."""
 
 import contextlib
 
@@ -15,6 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import dealii_slod_tpu_torch as pt
+from dealii_slod_tpu_torch.models.coarse import CoarseSystem
 from dealii_slod_tpu_torch.ops import solvers
 from dealii_slod_tpu_torch.ops.solvers import CGGraph, GraphPlans, cg
 from dealii_slod_tpu_torch.utils import timers
@@ -50,10 +52,10 @@ def stencil_solver():
 
 
 def eager(s, A_st, b):
-    """The coarse CG as ``_coarse_cg`` runs it, without a plan."""
+    """The coarse CG as ``CoarseSystem.cg`` runs it, without a plan."""
     diag = torch.einsum("pdd->pd", A_st[:, s.center_offset_idx])
     rc = s.cfg.coarse_solver
-    return cg(s._coarse_matvec_fn(A_st), b, max_steps=rc.max_steps,
+    return cg(CoarseSystem(s, A_st).matvec, b, max_steps=rc.max_steps,
               tolerance=rc.tolerance, reduce=rc.reduce,
               precond=lambda r: r / diag)
 
@@ -83,34 +85,39 @@ def test_plan_key_rule():
 
 
 def test_solver_rule_engages_only_on_the_cards_single_rank_stencil_route(
-        stencil_solver):
-    """``_cg_plan``: the key rule on the card's single-rank stencil route,
-    the stopping rule part of the key; None on the CPU, under a process
-    group and on the dense route."""
+        stencil_solver, monkeypatch):
+    """``CoarseSystem.plan``: the key rule on the card's single-rank
+    stencil route, the stopping rule part of the key; None on the CPU,
+    under a process group and on the dense route."""
     s = stencil_solver
     A = s.A_stencil.clone()
-    s._cg_plans = GraphPlans()
+    s._graph_plans = GraphPlans()
+    cpu = CoarseSystem(s, A)
+    monkeypatch.setattr(s, "device", CUDA)
+    ranks = CoarseSystem(s, A, group=object())
     for _ in range(3):
-        assert s._cg_plan(A, "cpu") is None
-        assert s._cg_plan(A, CUDA, group=object()) is None
-    assert s._cg_plan(A, CUDA) is None
-    plan = s._cg_plan(A, CUDA)
-    assert plan is not None and s._cg_plan(A, CUDA) is plan
+        assert not cpu.graphs and cpu.plan() is None
+        assert not ranks.graphs and ranks.plan() is None
+    card = CoarseSystem(s, A)
+    assert card.graphs and card.plan() is None
+    plan = card.plan()
+    assert plan is not None and CoarseSystem(s, A).plan() is plan
     rc = s.cfg.coarse_solver                        # another stopping rule
     s.cfg.coarse_solver = pt.ReductionControl(500, 1e-8, 1e-8)
     try:
-        assert s._cg_plan(A, CUDA) is None
-        assert s._cg_plan(A, CUDA) is not None
+        assert card.plan() is None
+        assert card.plan() is not None
     finally:
         s.cfg.coarse_solver = rc
-    assert s._cg_plan(A, CUDA) is None
+    assert card.plan() is None
     cap = s.cfg.coarse_dense_cap
     s.cfg.coarse_dense_cap = 8192                   # the dense route
     try:
-        assert s._cg_plan(A, CUDA) is None
+        dense = CoarseSystem(s, A)
+        assert not dense.graphs and dense.plan() is None
     finally:
         s.cfg.coarse_dense_cap = cap
-        s._cg_plans = GraphPlans()
+        s._graph_plans = GraphPlans()
 
 
 def test_cpu_solves_never_capture_and_equal_eager(stencil_solver):
@@ -123,28 +130,29 @@ def test_cpu_solves_never_capture_and_equal_eager(stencil_solver):
     for _ in range(3):
         b = torch.from_numpy(rng.standard_normal((s.topo.n_patches, s.C)))
         with traced():
-            res = s._coarse_cg(A, b)
+            res = CoarseSystem(s, A).cg(b)
         assert "cg.graph_iterations" not in timers.counters()
         ref = eager(s, A, b)
         assert torch.equal(res.x, ref.x)
         assert int(res.n_iter) == int(ref.n_iter) > 0
-    assert s._cg_plans._plan is None
+    assert s._graph_plans._plan is None
     timers.clear()
 
 
 def test_stencil_tables_upload_once(stencil_solver):
-    """Two coarse solves on the stencil route count the tables' bytes in
-    ``h2d_bytes`` once; the tables are kept on the solver."""
+    """Two coarse solves on the stencil route, each by its own coarse
+    system, count the tables' bytes in ``h2d_bytes`` once; the tables are
+    kept on the solver."""
     s = stencil_solver
     s._gather = None
-    b = s._coarse_rhs(s.Phi, s.fem_rhs)
+    b = CoarseSystem(s, s.A_stencil).rhs(s.Phi, s.fem_rhs)
     with traced():
-        s._coarse_cg(s.A_stencil, b)
-        s._coarse_cg(s.A_stencil, b)
+        CoarseSystem(s, s.A_stencil).cg(b)
+        CoarseSystem(s, s.A_stencil).cg(b)
     nbytes = (s.stencil_nbr_np.astype(np.int64).nbytes
               + s.stencil_valid_np.astype(bool).nbytes)
     assert timers.counters()["h2d_bytes"] == {"cg": nbytes}
-    nbr, valid = s._stencil_gather()
+    nbr, valid = s._gather
     assert nbr.dtype == torch.int64 and valid.dtype == torch.bool
     assert np.array_equal(nbr.numpy(), s.stencil_nbr_np)
     timers.clear()

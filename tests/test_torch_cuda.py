@@ -744,6 +744,7 @@ def test_coarse_cg_graph_replays_match_eager(cuda):
     to an eager solve."""
     from torch.profiler import ProfilerActivity, profile
 
+    from dealii_slod_tpu_torch.models.coarse import CoarseSystem
     from dealii_slod_tpu_torch.ops.solvers import cg
     from dealii_slod_tpu_torch.utils import timers
     cfg = SLODConfig(dim=3, n_global_refinements=2, n_subdivisions=2,
@@ -763,14 +764,14 @@ def test_coarse_cg_graph_replays_match_eager(cuda):
 
     def eager(b):
         diag = torch.einsum("pdd->pd", A[:, s.center_offset_idx])
-        return cg(s._coarse_matvec_fn(A), b, max_steps=rc.max_steps,
+        return cg(CoarseSystem(s, A).matvec, b, max_steps=rc.max_steps,
                   tolerance=rc.tolerance, reduce=rc.reduce,
                   precond=lambda r: r / diag)
 
     def solve(b):
         timers.clear()
         with profile(activities=[ProfilerActivity.CPU]):
-            res = s._coarse_cg(A, b)
+            res = CoarseSystem(s, A).cg(b)
             torch.cuda.synchronize()
         c = timers.counters()
         timers.clear()
@@ -789,7 +790,7 @@ def test_coarse_cg_graph_replays_match_eager(cuda):
         assert bool(res.converged)
         assert graph_it == (0 if i == 0 else enq) and enq > 0
         answers.append(res.x)
-    plan = s._cg_plans._plan
+    plan = s._graph_plans._plan
     assert plan is not None and plan.captured
     statics = {t.data_ptr() for t in plan._state}
     assert len({x.data_ptr() for x in answers}) == 4
@@ -800,7 +801,7 @@ def test_coarse_cg_graph_replays_match_eager(cuda):
     res, graph_it, enq = solve(rhs[4])
     assert graph_it == 0 and enq > 0
     assert rel(res.x, eager(rhs[4]).x) <= 1e-6
-    assert s._cg_plans._plan is None
+    assert s._graph_plans._plan is None
 
 
 def _card_chunk(elastic, p0=16, B=16):

@@ -49,6 +49,7 @@ from dealii_slod_tpu.models import LODSolver as JaxLOD
 from dealii_slod_tpu.models import basis as jax_basis
 from dealii_slod_tpu.ops import eig as jax_eig
 from dealii_slod_tpu_torch.models import basis
+from dealii_slod_tpu_torch.models.coarse import CoarseSystem
 from dealii_slod_tpu_torch.ops import eig
 
 torch.set_num_threads(2)
@@ -90,9 +91,9 @@ def exact_field(judge, Phi, A_st):
     solved exactly: ``judge``'s (a float64 port solver's) placement, rhs
     and canvases, numpy's dense solve."""
     Phi = torch.as_tensor(np.array(Phi), dtype=torch.float64)
-    A = judge.coarse_dense_matrix(
-        torch.as_tensor(np.array(A_st), dtype=torch.float64)).numpy()
-    rhs = judge._coarse_rhs(Phi, judge.fem_rhs).numpy()
+    A_st = torch.as_tensor(np.array(A_st), dtype=torch.float64)
+    A = judge.coarse_dense_matrix(A_st).numpy()
+    rhs = CoarseSystem(judge, A_st).rhs(Phi, judge.fem_rhs).numpy()
     x = np.linalg.solve(A, rhs.reshape(-1)).reshape(rhs.shape)
     out = torch.zeros((judge.grid.n_nodes, judge.C), dtype=torch.float64)
     out.index_add_(0, judge.canvas_gidx.reshape(-1),

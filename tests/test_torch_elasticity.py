@@ -31,6 +31,7 @@ from dealii_slod_tpu.models.elasticity import ElasticityProblem as JaxElast
 from dealii_slod_tpu.ops import assembly as jax_assembly
 from dealii_slod_tpu.ops.element import ElementTensors as JaxElement
 from dealii_slod_tpu.ops.element import quad_points_global
+from dealii_slod_tpu_torch.models.coarse import CoarseSystem
 from dealii_slod_tpu_torch.ops import assembly, patch_solve
 from dealii_slod_tpu_torch.ops.element import ElementTensors
 
@@ -253,8 +254,9 @@ def test_stencil_matvec_equals_dense(pair):
                       verbose=False)
     u = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (ps.topo.n_patches, ps.C)))
-    dense = ps._coarse_matvec_fn(pair["A_st"])(u)
-    assert rel(p0._coarse_matvec_fn(pair["A_st"])(u), dense.numpy()) <= 1e-13
+    dense = CoarseSystem(ps, pair["A_st"]).matvec(u)
+    assert rel(CoarseSystem(p0, pair["A_st"]).matvec(u),
+               dense.numpy()) <= 1e-13
 
 
 def test_route_taken(pair):

@@ -33,6 +33,7 @@ from dealii_slod_tpu.models import DiffusionProblem as JaxDiffusion
 from dealii_slod_tpu.models import LODSolver as JaxLOD
 from dealii_slod_tpu.models.basis import smallk_k_eff as jax_k_eff
 from dealii_slod_tpu_torch.models.basis import smallk_k_eff
+from dealii_slod_tpu_torch.models.coarse import CoarseSystem
 
 torch.set_num_threads(2)
 
@@ -171,8 +172,9 @@ def test_stencil_matvec_equals_dense(pair):
                       verbose=False)
     u = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (ps.topo.n_patches, 1)))
-    dense = ps._coarse_matvec_fn(pair["A_st"])(u)
-    assert rel(p0._coarse_matvec_fn(pair["A_st"])(u), dense.numpy()) <= 1e-13
+    dense = CoarseSystem(ps, pair["A_st"]).matvec(u)
+    assert rel(CoarseSystem(p0, pair["A_st"]).matvec(u),
+               dense.numpy()) <= 1e-13
 
 
 def test_smallk_route_taken(pair):

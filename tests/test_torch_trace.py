@@ -17,7 +17,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import dealii_slod_tpu_torch as pt
-from dealii_slod_tpu_torch.examples.multi_rhs import serve_fn
+from dealii_slod_tpu_torch.models.coarse import CoarseSystem
 from dealii_slod_tpu_torch.utils import kernels, timers
 
 torch.set_num_threads(2)
@@ -101,7 +101,7 @@ def test_nothing_recorded_without_a_profiler(slod, monkeypatch):
     timers.clear()
     slod.build_step()(slod.coef_q, slod.fem_rhs)
     slod.solve_coarse()
-    serve_fn(slod, "cg")(slod.fem_rhs)
+    slod.load_server("cg")(slod.fem_rhs)
     slod.prolong_lod_solution()
     assert calls == []
     assert timers.records() == [] and timers.counters() == {}
@@ -159,8 +159,8 @@ def test_solve_coarse_and_serve_spans(slod, monkeypatch):
     direct = solver(coarse_solve="direct", n_global_refinements=2)
     direct.compute_basis()
     direct.assemble_coarse_operator()
-    serve_direct = serve_fn(direct, "direct")
-    serve_cg = serve_fn(slod, "cg")
+    serve_direct = direct.load_server("direct")
+    serve_cg = slod.load_server("cg")
     with traced():
         with monkeypatch.context() as m:
             m.setattr(torch.linalg, "norm", no_norm)
@@ -221,12 +221,13 @@ def test_cg_counters(slod, tol):
     solver's ``n_iter``), ``cg.enqueued`` = 8 ceil(n / 8) and
     ``host_syncs`` = ceil(n / 8) + 1, all under the ``cg`` span."""
     A_st = slod.assemble_coarse_operator()
-    rhs = slod._coarse_rhs(slod.Phi, slod.fem_rhs)
+    system = CoarseSystem(slod, A_st)
+    rhs = system.rhs(slod.Phi, slod.fem_rhs)
     saved = slod.cfg.coarse_solver
     slod.cfg.coarse_solver = pt.ReductionControl(500, tol, tol)
     try:
         with traced():
-            res = slod._coarse_cg(A_st, rhs)
+            res = system.cg(rhs)
     finally:
         slod.cfg.coarse_solver = saved
     n = int(res.n_iter)
